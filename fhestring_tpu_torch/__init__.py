@@ -6,14 +6,19 @@ encrypted as 4 x 2-bit shortint radix blocks; every string method lowers to
 batched programmable bootstraps.  The module layout mirrors the JAX
 package's.  This package imports torch and numpy, never jax.
 
-Ported so far: the 32-bit-torus (turbo) parameter family end to end; see
-ROADMAP.md for what remains.
+Ported so far: the 64-bit parameter family (``PARAM_PROD``, the default)
+and the 32-bit-torus (turbo) family end to end; see ROADMAP.md for what
+remains.
 """
 
 from .params import (  # noqa: F401
     PARAM_MESSAGE_2_CARRY_2_KS_PBS_32,
+    PARAM_MESSAGE_2_CARRY_2_KS_PBS_64,
+    PARAM_PROD,
     PARAM_TEST32_STAT,
     PARAM_TEST32_ZERO_NOISE,
+    PARAM_TEST_NOISY,
+    PARAM_TEST_ZERO_NOISE,
     PARAM_TURBO,
     CryptoParams,
 )

@@ -19,7 +19,7 @@ import numpy as np
 from .ciphertext import FheChar, FheString, PublicParameters, blocks_from_numpy
 from .crypto.keys import pack_server_keys
 from .numpy_ref import core as ref
-from .params import PARAM_TURBO, CryptoParams
+from .params import PARAM_PROD, CryptoParams
 from .shortint import Blocks
 from . import torus
 
@@ -27,7 +27,7 @@ NB = 4
 
 
 class ClientKey:
-    def __init__(self, params: CryptoParams = PARAM_TURBO,
+    def __init__(self, params: CryptoParams = PARAM_PROD,
                  seed: int | None = 0, native_keygen: bool | None = None,
                  device="cpu"):
         """seed=None uses a fresh AES-CTR key (secure); an int seed gives a
@@ -57,7 +57,7 @@ class ClientKey:
         self.public_parameters = PublicParameters(num_blocks=params.num_blocks)
 
     @classmethod
-    def from_params(cls, params: CryptoParams = PARAM_TURBO,
+    def from_params(cls, params: CryptoParams = PARAM_PROD,
                     seed: int | None = 0, device="cpu") -> "ClientKey":
         return cls(params, seed, device=device)
 

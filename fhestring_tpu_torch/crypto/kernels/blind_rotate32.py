@@ -41,29 +41,21 @@ launches the kernel or raises.
 from __future__ import annotations
 
 import ctypes
-import functools
-import hashlib
-import os
-import shutil
-import subprocess
 
 import torch
 
-from ...native import BUILD_DIR
 from .. import ntt
 from ..keys import KEY_PLANES
+from . import cuda_build
 
 BASE_LOG = 8
 LEVELS = 3
 GLWE_ROWS = 2  # k + 1
 
-_SRC = os.path.join(os.path.dirname(os.path.dirname(os.path.dirname(
-    os.path.abspath(__file__)))), "csrc", "blind_rotate32.cu")
-_NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
-_LIB = None
-_LIB_PATH = ""
-BUILD_LOG = ""
+_VP = ctypes.c_void_p
+_FUNCTIONS = {"fhe_blind_rotate32": (
+    [_VP, _VP, _VP, _VP, _VP, ctypes.c_int, ctypes.c_int, ctypes.c_int, _VP],
+    ctypes.c_int)}
 
 
 def max_plane_value(num_r: int, n: int) -> int:
@@ -72,41 +64,10 @@ def max_plane_value(num_r: int, n: int) -> int:
 
 
 def build() -> str:
-    """Compile the kernel into BUILD_DIR (keyed by a hash of source and
-    flags) and load it, once per process.  Returns the path of the shared
-    library; BUILD_LOG holds nvcc's output (ptxas registers and spills)
-    when this call compiled it."""
-    global _LIB, _LIB_PATH, BUILD_LOG
-    if _LIB is not None:
-        return _LIB_PATH
-    with open(_SRC, "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(_NVCC_FLAGS).encode())
-    path = os.path.join(BUILD_DIR,
-                        f"blind_rotate32-{digest.hexdigest()[:16]}.so")
-    if not os.path.exists(path):
-        os.makedirs(BUILD_DIR, exist_ok=True)
-        nvcc = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
-        tmp = f"{path}.{os.getpid()}.tmp"
-        proc = subprocess.run([nvcc, *_NVCC_FLAGS, "-o", tmp, _SRC],
-                              capture_output=True, text=True)
-        BUILD_LOG = proc.stdout + proc.stderr
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed:\n{BUILD_LOG}")
-        os.replace(tmp, path)
-    lib = ctypes.CDLL(path)
-    vp = ctypes.c_void_p
-    lib.fhe_blind_rotate32.argtypes = [vp, vp, vp, vp, vp, ctypes.c_int,
-                                       ctypes.c_int, ctypes.c_int, vp]
-    lib.fhe_blind_rotate32.restype = ctypes.c_int
-    lib.fhe_cuda_error_string.argtypes = [ctypes.c_int]
-    lib.fhe_cuda_error_string.restype = ctypes.c_char_p
-    _LIB, _LIB_PATH = lib, path
-    return path
-
-
-@functools.lru_cache(maxsize=None)
-def _twiddles(n: int, device: str, dtype=torch.int64) -> torch.Tensor:
-    return torch.from_numpy(ntt.twiddles(n)).to(device=device, dtype=dtype)
+    """Compile the kernel (``cuda_build``) and load it, once per process.
+    Returns the path of the shared library."""
+    cuda_build.load("blind_rotate32", _FUNCTIONS)
+    return cuda_build.library_path("blind_rotate32")
 
 
 def _check(acc_hi: torch.Tensor, amounts: torch.Tensor,
@@ -158,10 +119,8 @@ def blind_rotate32_plain(acc_hi: torch.Tensor, amounts: torch.Tensor,
     _check(acc_hi, amounts, khat)
     B, kp1, N = acc_hi.shape
     dev = acc_hi.device
-    tw = _twiddles(N, str(dev))
+    tw = ntt.device_twiddles(N, str(dev))
     p = torch.tensor(ntt.PRIMES, dtype=torch.int64, device=dev)
-    p0, p1 = ntt.PRIMES
-    inv_p0 = pow(p0, p1 - 2, p1)
     shifts = torch.arange(KEY_PLANES, device=dev) * 8
     acc = acc_hi.to(torch.int64) & 0xFFFFFFFF
     t = torch.arange(N, device=dev)
@@ -179,10 +138,7 @@ def blind_rotate32_plain(acc_hi: torch.Tensor, amounts: torch.Tensor,
         for i in range(kh.shape[1]):
             prod += dhat[:, :, i, None, :] * kh[:, None, i]
         res = ntt.ntt_inv(prod % p.view(2, 1, 1, 1), tw)   # [2, B, KO, N]
-        r0, r1 = res[0], res[1]
-        x2 = (r1 - r0) % p1 * inv_p0 % p1
-        v = r0 + p0 * x2                                   # [0, M)
-        w = torch.where(v > ntt.M // 2, v - ntt.M, v)      # centered W_s
+        w = ntt.crt_centered(res)                          # W_s
         w = w.view(B, kp1, KEY_PLANES, N) << shifts.view(1, 1, -1, 1)
         acc = (acc + w.sum(dim=2)) & 0xFFFFFFFF
     return torch.where(acc >= 1 << 31, acc - (1 << 32), acc).to(torch.int32)
@@ -194,7 +150,7 @@ def blind_rotate32(acc_hi: torch.Tensor, amounts: torch.Tensor,
 
     acc_hi: int32 [B, k+1, N] initial accumulator (u32 payloads);
     amounts: int32 [B, n] per-step rotation amounts in [0, 2N);
-    khat: int16 [n, 2, R, (k+1)*4, N] (keys.pack_bsk_ntt32).
+    khat: int16 [n, 2, R, (k+1)*4, N] (keys.pack_bsk_ntt).
     Returns int32 [B, k+1, N]: the final accumulator payloads.
 
     CPU tensors run ``blind_rotate32_plain``; CUDA tensors launch the
@@ -206,18 +162,16 @@ def blind_rotate32(acc_hi: torch.Tensor, amounts: torch.Tensor,
         return blind_rotate32_plain(acc_hi, amounts, khat)
     if acc_hi.device.type != "cuda":
         raise ValueError(f"no blind-rotation kernel for {acc_hi.device}")
-    build()
+    lib = cuda_build.load("blind_rotate32", _FUNCTIONS)
     B, _, N = acc_hi.shape
-    tw = _twiddles(N, str(acc_hi.device), torch.int32)
+    tw = ntt.device_twiddles(N, str(acc_hi.device), torch.int32)
     out = torch.empty_like(acc_hi)
     with torch.cuda.device(acc_hi.device):
-        err = _LIB.fhe_blind_rotate32(
+        err = lib.fhe_blind_rotate32(
             acc_hi.data_ptr(), out.data_ptr(), amounts.data_ptr(),
             khat.data_ptr(), tw.data_ptr(), B, amounts.shape[1], N,
             torch.cuda.current_stream().cuda_stream)
-    if err:
-        raise RuntimeError("blind_rotate32 launch failed: "
-                           + _LIB.fhe_cuda_error_string(err).decode())
+    cuda_build.check(lib, err, "blind_rotate32")
     blind_rotate32.launches += 1
     return out
 

@@ -5,14 +5,18 @@ this module packs the server-side evaluation keys into the layouts the
 device path reads:
 
 - Keyswitch key: balanced int8 limb planes flattened for one
-  ``[B, kN*ks_level] @ [kN*ks_level, (n+1)*4]`` int8 matmul with int32
-  accumulation.  A 32-bit-torus key has only 4 nonzero byte planes (the low
-  4 of the u64 value are zero); the columns are zero-padded to a multiple
-  of 8, which CUDA's ``torch._int_mm`` requires (turbo: 2972 -> 2976).
-- Bootstrap key: the NTT-domain layout of the blind-rotation kernel
-  (``kernels/blind_rotate32.py``), int16 [n, 2(prime), R, (k+1)*4, N]: the
-  forward transforms (1/N folded in) of the 4 balanced byte limbs of each
-  u32 key payload, as u16 residues stored in int16 bits.
+  ``[B, kN*ks_level] @ [kN*ks_level, (n+1)*P]`` int8 matmul with int32
+  accumulation.  A 64-bit-torus key keeps all P = 8 byte planes
+  (PARAM_PROD: [10240, 5944]); a 32-bit-torus key has only P = 4 nonzero
+  ones (the low 4 of the u64 value are zero).  The columns are zero-padded
+  to a multiple of 8, which CUDA's ``torch._int_mm`` requires (turbo:
+  2972 -> 2976).
+- Bootstrap key: the NTT-domain layout of the blind-rotation kernel of the
+  torus family, int16 [n, 2(prime), R, (k+1)*P, N]: the forward transforms
+  (1/N folded in) of the P balanced byte limbs of each key value, as u16
+  residues stored in int16 bits.  P = 4 limbs of the u32 payload
+  (``kernels/blind_rotate32.py``) or P = 8 limbs of the u64 value
+  (``kernels/blind_rotate64.py``).
 - LUT bank: doubled test polynomials, int64 torus [L, 2N].
 
 These replace the JAX package's ``crypto/keys.py`` layouts; the numpy
@@ -33,17 +37,28 @@ from ..params import CryptoParams
 from . import ntt
 
 KEY_PLANES = 4  # nonzero byte limbs of a 32-bit-subgroup key value
+KEY_PLANES64 = 8  # byte limbs of a 64-bit key value
 _STEP_CHUNK = 64  # bootstrap-key steps transformed at once while packing
+
+
+def key_planes(p: CryptoParams) -> int:
+    """Byte-limb planes of the family's key values: 4 (32-bit) or 8."""
+    return KEY_PLANES if p.torus_bits == 32 else KEY_PLANES64
 
 
 @dataclasses.dataclass
 class DeviceServerKeys:
     params: CryptoParams
     # int8 [kN*ks_level, ks_cols]: KSK limb planes for the KS matmul; the
-    # first (n+1)*4 columns are live, the rest are zero padding.
+    # first (n+1)*key_planes(params) columns are live, the rest are zero
+    # padding.
     ksk_limbs: torch.Tensor
-    # int16 [n, 2(prime), R, (k+1)*4, N]: NTT-domain bootstrap key.
-    bsk_ntt32: torch.Tensor
+    # int16 [n, 2(prime), R, (k+1)*4, N]: NTT-domain bootstrap key of a
+    # 32-bit-torus set, else None.
+    bsk_ntt32: torch.Tensor | None = None
+    # int16 [n, 2(prime), R, (k+1)*8, N]: NTT-domain bootstrap key of a
+    # 64-bit-torus set, else None.
+    bsk_ntt64: torch.Tensor | None = None
 
     @property
     def device(self) -> torch.device:
@@ -67,33 +82,43 @@ def _u16_bits(x: torch.Tensor) -> torch.Tensor:
     return torch.where(x >= 1 << 15, x - (1 << 16), x).to(torch.int16)
 
 
-def pack_bsk_ntt32(bsk, device) -> torch.Tensor:
-    """u64 [n, R, k+1, N] subgroup-valued key polys (numpy or int64 tensor)
-    -> int16 [n, 2, R, (k+1)*4, N] kernel key, packed on ``device``."""
+def pack_bsk_ntt(bsk, device, planes: int) -> torch.Tensor:
+    """u64 [n, R, k+1, N] key polys (numpy or int64 tensor) -> int16
+    [n, 2, R, (k+1)*planes, N] kernel key, packed on ``device`` in chunks
+    of steps: the hats of the balanced byte limbs of the u32 payload
+    (planes = KEY_PLANES: subgroup-valued keys, ``blind_rotate32``) or of
+    the whole u64 value (planes = KEY_PLANES64, limb 7's carry dropped as
+    in ``fhestring_tpu.crypto.keys.balanced_limbs_u64``: ``blind_rotate64``).
+    """
     bsk = bsk if torch.is_tensor(bsk) else torus.from_numpy(bsk)
     n_steps, R, kp1, N = bsk.shape
-    out = torch.empty((n_steps, len(ntt.PRIMES), R, kp1 * KEY_PLANES, N),
+    out = torch.empty((n_steps, len(ntt.PRIMES), R, kp1 * planes, N),
                       dtype=torch.int16, device=device)
     for s in range(0, n_steps, _STEP_CHUNK):
         chunk = bsk[s:s + _STEP_CHUNK].to(device)
-        if bool((chunk & torus.MASK32).any()):
-            raise ValueError("bootstrap key not in the 32-bit subgroup")
-        payload = (chunk >> 32) & torus.MASK32
-        limbs = balanced_limbs(payload, KEY_PLANES)     # [c, R, kp1, N, 4]
-        limbs = limbs.movedim(-1, -2).reshape(-1, R, kp1 * KEY_PLANES, N)
+        if planes == KEY_PLANES:
+            if bool((chunk & torus.MASK32).any()):
+                raise ValueError("bootstrap key not in the 32-bit subgroup")
+            chunk = (chunk >> 32) & torus.MASK32
+        limbs = balanced_limbs(chunk, planes)           # [c, R, kp1, N, P]
+        limbs = limbs.movedim(-1, -2).reshape(-1, R, kp1 * planes, N)
         hats = ntt.key_hats(limbs)                      # [2, c, R, KO, N]
         out[s:s + _STEP_CHUNK] = _u16_bits(hats.movedim(0, 1))
     return out
 
 
 def pack_ksk(ksk, p: CryptoParams, device) -> torch.Tensor:
-    """u64 [kN, ks_level, n+1] -> int8 [kN*ks_level, ceil8((n+1)*4)]."""
+    """u64 [kN, ks_level, n+1] -> int8 [kN*ks_level, ceil8((n+1)*P)],
+    P = key_planes(p)."""
     ksk = ksk if torch.is_tensor(ksk) else torus.from_numpy(ksk)
     ksk = ksk.to(device)
-    if bool((ksk & torus.MASK32).any()):
-        raise ValueError("keyswitch key not in the 32-bit subgroup")
-    limbs = balanced_limbs((ksk >> 32) & torus.MASK32, KEY_PLANES)
-    cols = (p.lwe_dimension + 1) * KEY_PLANES
+    planes = key_planes(p)
+    if planes == KEY_PLANES:
+        if bool((ksk & torus.MASK32).any()):
+            raise ValueError("keyswitch key not in the 32-bit subgroup")
+        ksk = (ksk >> 32) & torus.MASK32
+    limbs = balanced_limbs(ksk, planes)
+    cols = (p.lwe_dimension + 1) * planes
     flat = limbs.reshape(p.big_lwe_dimension * p.ks_level, cols)
     padded = torch.zeros((flat.shape[0], -(-cols // 8) * 8),
                          dtype=torch.int8, device=device)
@@ -105,16 +130,18 @@ def pack_server_keys(srv_or_arrays, device, params: CryptoParams | None = None
                      ) -> DeviceServerKeys:
     """Pack the numpy ``bsk`` and ``ksk`` arrays of a ``ServerKeys`` (this
     package's numpy_ref or the JAX package's: the arrays are the same) onto
-    ``device``.  ``params`` (default: ``srv_or_arrays.params``) names the
-    parameter set the device keys are tagged with."""
+    ``device``, in the layout of the parameter set's torus family.
+    ``params`` (default: ``srv_or_arrays.params``) names the parameter set
+    the device keys are tagged with."""
     bsk, ksk = srv_or_arrays.bsk, srv_or_arrays.ksk
     p = params or srv_or_arrays.params
-    if p.torus_bits != 32:
-        raise NotImplementedError(
-            "the 64-bit torus (PARAM_PROD) is not ported yet: ROADMAP.md "
-            "Queue 1 item 9")
-    return DeviceServerKeys(params=p, ksk_limbs=pack_ksk(ksk, p, device),
-                            bsk_ntt32=pack_bsk_ntt32(bsk, device))
+    khat = pack_bsk_ntt(bsk, device, key_planes(p))
+    keys = DeviceServerKeys(params=p, ksk_limbs=pack_ksk(ksk, p, device))
+    if p.torus_bits == 32:
+        keys.bsk_ntt32 = khat
+    else:
+        keys.bsk_ntt64 = khat
+    return keys
 
 
 def pack_luts(tables, p: CryptoParams, device) -> torch.Tensor:

@@ -12,10 +12,11 @@ textbook pair for Z_p[X]/(X^N + 1) with psi a primitive 2N-th root of unity:
   ``ntt_inv(ntt_fwd(a) * key_hats(b))`` is the negacyclic product a * b
   mod p.
 
-The CUDA kernel (``csrc/blind_rotate32.cu``) runs exactly these butterflies
-with the twiddle tables of ``twiddles``; these torch versions are its plain
-counterpart and pack the bootstrap key.  Both primes are processed at once:
-a leading axis of size 2 selects the prime.
+The CUDA kernels (``csrc/blind_rotate32.cu``, ``csrc/blind_rotate64.cu``)
+run exactly these butterflies with the twiddle tables of ``twiddles``;
+these torch versions are their plain counterparts and pack the bootstrap
+keys.  Both primes are processed at once: a leading axis of size 2 selects
+the prime.  ``crt_centered`` rebuilds |W| < M/2 from the two residues.
 """
 
 from __future__ import annotations
@@ -77,6 +78,21 @@ def twiddles(n: int) -> np.ndarray:
     return out
 
 
+@functools.lru_cache(maxsize=None)
+def device_twiddles(n: int, device: str, dtype=torch.int64) -> torch.Tensor:
+    """``twiddles(n)`` as a tensor on ``device`` (int32 for the kernels)."""
+    return torch.from_numpy(twiddles(n)).to(device=device, dtype=dtype)
+
+
+def crt_centered(res: torch.Tensor) -> torch.Tensor:
+    """Residues int64 [2, ...] (mod PRIMES[0], PRIMES[1]) -> the integer W
+    with |W| < M/2 they represent (centered Garner CRT), int64 [...]."""
+    p0, p1 = PRIMES
+    x2 = (res[1] - res[0]) % p1 * pow(p0, p1 - 2, p1) % p1
+    v = res[0] + p0 * x2                                   # [0, M)
+    return torch.where(v > M // 2, v - M, v)
+
+
 def _moduli(device) -> torch.Tensor:
     return torch.tensor(PRIMES, dtype=torch.int64, device=device)
 
@@ -124,7 +140,7 @@ def key_hats(polys: torch.Tensor) -> torch.Tensor:
     forward transforms per prime with 1/N folded in, residues in [0, p)."""
     n = polys.shape[-1]
     p = _moduli(polys.device).view((2,) + (1,) * polys.dim())
-    tw = torch.from_numpy(twiddles(n)).to(polys.device)
+    tw = device_twiddles(n, str(polys.device))
     hats = ntt_fwd(polys.unsqueeze(0) % p, tw)
     n_inv = torch.tensor([pow(n, q - 2, q) for q in PRIMES],
                          dtype=torch.int64, device=polys.device)

@@ -1,17 +1,18 @@
-"""Batched programmable bootstrap on PyTorch: the 32-bit-torus (turbo) path.
+"""Batched programmable bootstrap on PyTorch, both torus families.
 
 Pipeline (KS -> PBS order, as the JAX package's ``crypto/pbs.py``):
 
     LWE(big key, k*N)  --keyswitch-->  LWE(small key, n)
                        --modswitch-->  Z_{2N} coefficients
                        --test-poly rotation--> GLWE accumulator
-                       --blind rotate--> (kernels/blind_rotate32.py)
+                       --blind rotate--> (kernels/blind_rotate32.py or
+                                          kernels/blind_rotate64.py)
                        --sample extract--> LWE(big key) of table[m]
 
 Torus values are int64 tensors holding the u64 residue (``torus.py``).  In
-the 32-bit-torus family every value is a multiple of 2**32, so the blind
-rotation carries only the u32 payload (int32).  The 64-bit torus
-(``PARAM_PROD``) is not ported yet.
+the 32-bit-torus family (turbo) every value is a multiple of 2**32, so the
+blind rotation carries only the u32 payload (int32); the 64-bit family
+(``PARAM_PROD``) carries the whole int64 accumulator.
 """
 
 from __future__ import annotations
@@ -20,19 +21,21 @@ import torch
 
 from .. import torus
 from ..params import CryptoParams
-from .keys import KEY_PLANES, DeviceServerKeys
+from .keys import DeviceServerKeys, key_planes
 from .kernels import blind_rotate32 as br
+from .kernels import blind_rotate64 as br64
 
 
-def _require_turbo(p: CryptoParams) -> None:
-    if p.torus_bits != 32:
-        raise NotImplementedError(
-            "the 64-bit torus (PARAM_PROD) is not ported yet: ROADMAP.md "
-            "Queue 1 item 9")
-    if (p.pbs_base_log, p.pbs_level, p.glwe_dimension + 1) != (
-            br.BASE_LOG, br.LEVELS, br.GLWE_ROWS):
-        raise ValueError(f"{p.name}: the blind-rotation kernel takes gadget "
-                         f"2^{br.BASE_LOG} x {br.LEVELS} and k = 1 only")
+def _check_kernel_shape(p: CryptoParams) -> None:
+    """The family's blind-rotation kernel takes this set's gadget and k."""
+    if p.torus_bits == 32:
+        shape = (br.BASE_LOG, br.LEVELS, br.GLWE_ROWS)
+    else:
+        shape = (br64.BASE_LOG, br64.LEVELS, br64.GLWE_ROWS)
+    if (p.pbs_base_log, p.pbs_level, p.glwe_dimension + 1) != shape:
+        raise ValueError(f"{p.name}: the {p.torus_bits}-bit blind-rotation "
+                         f"kernel takes gadget 2^{shape[0]} x {shape[1]} "
+                         f"and k = 1 only")
 
 
 # ---------------------------------------------------------------------------
@@ -77,17 +80,21 @@ def keyswitch(ct: torch.Tensor, keys: DeviceServerKeys) -> torch.Tensor:
     Exact: ks digits |d| <= 4, key limbs |l| <= 128, K = kN*ks_level terms,
     so every int32 sum is below 4 * 128 * K (2^22.3 at turbo)."""
     p = keys.params
-    _require_turbo(p)
     kn, n1 = p.big_lwe_dimension, p.lwe_dimension + 1
     digits = decompose(ct[:, :kn], p.ks_base_log, p.ks_level)  # [lev, B, kN]
     # K-order matches keys.pack_ksk: (i, lev) row-major.
     d = digits.permute(1, 2, 0).reshape(ct.shape[0], kn * p.ks_level)
     planes = _int8_matmul(d.to(torch.int8), keys.ksk_limbs)
-    planes = planes[:, :n1 * KEY_PLANES].reshape(-1, n1, KEY_PLANES)
-    # the 4 planes are the u64 value's byte limbs 4..7
-    acc = sum(planes[..., s].to(torch.int64) << (32 + 8 * s)
-              for s in range(KEY_PLANES))
-    out = -acc
+    nplanes = key_planes(p)
+    planes = planes[:, :n1 * nplanes].reshape(-1, n1, nplanes)
+    # sum_s plane_s * 256**s mod 2**64 (JAX recombine_planes); the 4 planes
+    # of a 32-bit-torus key are the u64 value's byte limbs 4..7
+    low = 64 - 8 * nplanes
+    acc = torch.zeros_like(planes[..., 0], dtype=torch.int64)
+    for s in range(nplanes):
+        acc = torus.add(acc, torus.shl(planes[..., s].to(torch.int64),
+                                       low + 8 * s))
+    out = torus.neg(acc)
     out[:, -1] += ct[:, kn]
     return out
 
@@ -123,15 +130,25 @@ def sample_extract(acc: torch.Tensor, p: CryptoParams) -> torch.Tensor:
 
 
 def blind_rotate(acc: torch.Tensor, lwe_2n: torch.Tensor,
-                 keys: DeviceServerKeys) -> torch.Tensor:
+                 keys: DeviceServerKeys, rounded: bool = False,
+                 approx: bool = False) -> torch.Tensor:
     """acc: int64 [B, k+1, N]; lwe_2n: int64 [B, n+1] in [0, 2N).  Rotates
     acc by -phase homomorphically: first by -b (the body, column n), then
-    the n-step kernel over the mask coefficients."""
+    the n-step kernel over the mask coefficients.
+
+    rounded/approx select the 64-bit kernel's mode, with the JAX meaning
+    (``numpy_ref.blind_rotate(rounded=rounded, min_shift=3 if approx else
+    0)``); the 32-bit kernel runs the exact mode only."""
     p = keys.params
-    _require_turbo(p)
+    _check_kernel_shape(p)
     two_n = 2 * p.polynomial_size
     acc = negacyclic_rotate(acc, (two_n - lwe_2n[:, -1]) & (two_n - 1))
     amounts = lwe_2n[:, :p.lwe_dimension].to(torch.int32).contiguous()
+    if p.torus_bits == 64:
+        return br64.blind_rotate64(acc.contiguous(), amounts, keys.bsk_ntt64,
+                                   rounded=rounded, approx=approx)
+    if rounded or approx:
+        raise ValueError("the 32-bit blind rotation runs the exact mode only")
     hi = br.blind_rotate32(torus.hi32(acc).contiguous(), amounts,
                            keys.bsk_ntt32)
     return torus.from_hi32(hi)
@@ -142,14 +159,16 @@ def blind_rotate(acc: torch.Tensor, lwe_2n: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 def pbs_batch(ct: torch.Tensor, lut_idx: torch.Tensor, lut_bank: torch.Tensor,
-              keys: DeviceServerKeys) -> torch.Tensor:
+              keys: DeviceServerKeys, rounded: bool = False,
+              approx: bool = False) -> torch.Tensor:
     """Apply per-item LUTs to a batch of big-key LWE ciphertexts.
 
     ct: int64 [B, kN+1]; lut_idx: int64 [B] into lut_bank int64 [L, 2N].
     Returns int64 [B, kN+1] encrypting table[m] with fresh PBS noise.
+    rounded/approx: the blind rotation's mode (``blind_rotate``).
     """
     p = keys.params
-    _require_turbo(p)
+    _check_kernel_shape(p)
     N = p.polynomial_size
     B = ct.shape[0]
     lwe_2n = modswitch(keyswitch(ct, keys), p)
@@ -163,4 +182,5 @@ def pbs_batch(ct: torch.Tensor, lut_idx: torch.Tensor, lut_bank: torch.Tensor,
     acc = torch.cat([body.new_zeros((B, p.glwe_dimension, N)),
                      body[:, None, :]], dim=1)
     lwe_nob = torch.cat([lwe_2n[:, :-1], lwe_2n.new_zeros((B, 1))], dim=1)
-    return sample_extract(blind_rotate(acc, lwe_nob, keys), p)
+    return sample_extract(
+        blind_rotate(acc, lwe_nob, keys, rounded=rounded, approx=approx), p)

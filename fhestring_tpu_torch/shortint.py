@@ -125,7 +125,14 @@ class ShortintContext:
         keyswitch and accumulator memory).  On CPU the batch is padded to a
         power of two, as the JAX package pads on CPU, so counts and padded
         counts match it there.  The CUDA kernel takes any batch, so on the
-        card nothing is padded."""
+        card nothing is padded.
+
+        The blind rotation's mode mirrors the JAX package's choice: on the
+        card the 64-bit set runs its kernel rounded + approx (the JAX
+        package's accelerator default, calibrated on device in
+        benchmarks/calibration_prod_r5.log); on CPU it runs exact, as the
+        JAX package's CPU path does, so CPU outputs stay bit-identical to
+        it.  The 32-bit set runs exact everywhere."""
         n = flat.shape[0]
         on_cpu = flat.device.type == "cpu"
         max_chunk = 4096 if on_cpu else 8192
@@ -142,7 +149,9 @@ class ShortintContext:
         if padded != n:
             flat = torch.cat([flat, flat.new_zeros((padded - n, flat.shape[1]))])
             idx = torch.cat([idx, idx.new_zeros(padded - n)])
-        return pbs_batch(flat, idx, bank, self.keys)[:n]
+        fast = not on_cpu and self.params.torus_bits == 64
+        return pbs_batch(flat, idx, bank, self.keys, rounded=fast,
+                         approx=fast)[:n]
 
     def apply_lut(self, a: Blocks, table) -> Blocks:
         """Univariate LUT via one batched PBS. table: 16 ints in [0, 16)."""

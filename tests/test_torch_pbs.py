@@ -143,8 +143,16 @@ def test_pbs_batch_per_item_luts(setup):
 
 
 def test_64bit_torus_is_not_ported():
-    from fhestring_tpu_torch.params import PARAM_TEST_ZERO_NOISE
+    """The 64-bit torus is not run through the 32-bit path: its keys pack
+    into the 64-bit kernel's layout (8 byte planes) and not into the turbo
+    one, and the 32-bit kernel refuses that key."""
+    from fhestring_tpu_torch.params import PARAM_TEST_ZERO_NOISE as P64
 
-    _, srv = ref.keygen(PARAM_TEST_ZERO_NOISE, np.random.default_rng(0))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        keys.pack_server_keys(srv, "cpu", params=PARAM_TEST_ZERO_NOISE)
+    _, srv = ref.keygen(P64, np.random.default_rng(0))
+    dev = keys.pack_server_keys(srv, "cpu", params=P64)
+    assert dev.bsk_ntt32 is None
+    assert dev.bsk_ntt64.shape[3] == 2 * 8
+    acc = torch.zeros((1, 2, P64.polynomial_size), dtype=torch.int32)
+    amounts = torch.zeros((1, P64.lwe_dimension), dtype=torch.int32)
+    with pytest.raises(ValueError, match="khat shape"):
+        br.blind_rotate32(acc, amounts, dev.bsk_ntt64)
