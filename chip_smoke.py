@@ -5,8 +5,8 @@ Drives the port's served path on the card at two full-width parameter
 sets, each phase printing one line:
 
 1. device: name, count, ``nvidia-smi`` name and power limit;
-2. build of both blind-rotation kernels from csrc/ (one nvcc each, in
-   parallel), with the time and what ptxas reports.
+2. build of all five kernels from csrc/ (one nvcc each, in parallel),
+   with the time and what ptxas reports.
 
 The turbo set PARAM_MESSAGE_2_CARRY_2_KS_PBS_32 (n=742, N=2048, k=1,
 gadget 2^8 x 3; kernel blind_rotate32):
@@ -38,7 +38,23 @@ The 64-bit set PARAM_PROD (n=742, N=2048, k=1, gadget 2^23 x 1, ks 2^3 x
     before this phase) equal the PBS batches;
 12. throughput as in phase 7, in the production mode.
 
-Then one JSON line describing both kernels, and last the line
+The step-wise 64-bit route at PARAM_PROD (one launch of rotate_decompose,
+K5, and one of ext_product, K3, or ntt_ext, K4, per LWE step; exact), on
+the phase-8 keys and on a server packed with ``with_ntt2=False``:
+
+13. K5, K3 and K4 each against its plain version at B=8 over a few steps
+    of the prod key (step 0 with the amounts 0, N and 2N - 1), bit-exact,
+    both timed; then on step 0 at each B of SWEEP_B (K3 with 1 or 4 items
+    per block, as the wrapper picks it), and each K3 body at the last B;
+14. pbs_batch of B=256 through the K3 route and through the K4 route:
+    every output decrypts to table[m] and both equal pbs_batch with K2 in
+    its exact mode, bit for bit; K4's launches are counted over its run;
+15. the six requests through the ``with_ntt2=False`` server (the K5 + K3
+    route): outputs equal Python's str, PBS counts equal PROD_COUNTS, K5
+    and K3 launch n times per PBS batch and K2 never;
+16. PBS/s of pbs_batch through both routes at B=STEPWISE_B.
+
+Then one JSON line describing the five kernels, and last the line
 ``{"ok": true, "device": {...}}``.  Any failed phase raises and exits
 non-zero.  Usage (from the repository root):
 
@@ -63,6 +79,11 @@ PROD_COUNTS = {"Contains": (194, 5), "ContainsClear": (194, 5),
                "ToUpper": (36, 3), "Len": (38, 5), "Eq": (131, 25),
                "Find": (239, 13)}
 TABLE = [(7 * x + 3) % 16 for x in range(16)]
+STEPWISE_B = 2048  # batch of the step-wise routes' throughput (phase 16)
+# Batches of phase 13's sweep: at N=2048 on 132 SMs, ext_product's
+# items_per_block picks 1, 1, 1, 4 and 4 items per block, either side of
+# its switch, and the 4-item body's last block is partly filled.
+SWEEP_B = (1, 8, 32, 33, 99)
 
 
 def fail(msg: str):
@@ -101,12 +122,14 @@ def make_keys(P, dev, phase):
     torch.cuda.synchronize()
     t_pack = time.perf_counter() - t0
     dkeys = server.backend.sc.keys
-    bsk = dkeys.bsk_ntt32 if P.torus_bits == 32 else dkeys.bsk_ntt64
-    mib = (bsk.numel() * 2 + dkeys.ksk_limbs.numel()) / 2**20
+    held = {"bsk": dkeys.bsk_ntt32 if P.torus_bits == 32 else dkeys.bsk_ntt64,
+            "bsk_limbs": dkeys.bsk_limbs, "ksk": dkeys.ksk_limbs}
+    held = {k: t for k, t in held.items() if t is not None}
+    mib = sum(t.numel() * t.element_size() for t in held.values()) / 2**20
     print(f"phase {phase} keys: {P.name} n={P.lwe_dimension} "
           f"N={P.polynomial_size} keygen {t_keygen:.2f} s, packing on the "
-          f"card {t_pack:.2f} s, {mib:.0f} MiB on the card (bsk "
-          f"{tuple(bsk.shape)}, ksk {tuple(dkeys.ksk_limbs.shape)})")
+          f"card {t_pack:.2f} s, {mib:.0f} MiB on the card (" + ", ".join(
+              f"{k} {tuple(t.shape)}" for k, t in held.items()) + ")")
     return client, server, dkeys
 
 
@@ -145,9 +168,11 @@ def pbs_known_lut(client, dkeys, phase, **mode):
     return bank
 
 
-def requests(client, server, counter, table_counts, phase):
-    """The six requests through the served path; returns the kernel's
-    launches counted over them (the counter is set to 0 just before)."""
+def requests(client, server, counters, table_counts, phase):
+    """The six requests through the served path.  counters: (kernel,
+    launches per PBS batch) of each kernel the path must run that many
+    times (0: never).  Returns each kernel's launches counted over the
+    requests (every count is set to 0 just before)."""
     import torch
 
     from fhestring_tpu_torch import metrics
@@ -164,7 +189,8 @@ def requests(client, server, counter, table_counts, phase):
     inputs = (client.encrypt(S, 1), client.encrypt_no_padding(PAT),
               client.encrypt(PAT, 1))
     torch.cuda.synchronize()
-    counter.launches = 0
+    for kernel, _ in counters:
+        kernel.launches = 0
     rows = []
     for method, (call, expected) in calls.items():
         metrics.reset()
@@ -181,13 +207,17 @@ def requests(client, server, counter, table_counts, phase):
             fail(f"{method}: PBS (items, batches) {counts}, table "
                  f"{table_counts[method]}")
         rows.append((method, got, counts, dt))
-    launches = counter.launches
+    launches = [kernel.launches for kernel, _ in counters]
     batches = sum(r[2][1] for r in rows)
-    if launches != batches or launches == 0:
-        fail(f"kernel launches {launches}, PBS batches {batches}")
+    for (kernel, per_batch), count in zip(counters, launches):
+        if count != per_batch * batches:
+            fail(f"{kernel.__name__} launches {count}, expected {per_batch} "
+                 f"per PBS batch x {batches} batches")
     print(f"phase {phase} requests: " + "; ".join(
         f"{m}={g!r} pbs={c[0]} batches={c[1]} {dt * 1e3:.0f} ms"
-        for m, g, c, dt in rows) + f"; kernel launches {launches}")
+        for m, g, c, dt in rows) + "; launches " + ", ".join(
+            f"{kernel.__name__} {count}"
+            for (kernel, _), count in zip(counters, launches)))
     return launches
 
 
@@ -235,6 +265,181 @@ def throughput(client, dkeys, bank, kernel, plain, make_acc, khat, phase,
           f"{t_plain:.1f} ms = {plain_rate:.1f}/s")
 
 
+def stepwise_kernels(dkeys, phase, steps=4, batch=8, repeat=20):
+    """K5, K3 and K4 against their plain versions over `steps` steps of
+    the prod key at B=batch, the accumulator advancing by K3's product;
+    step 0 takes the amounts 0, N and 2N - 1.  Returns {name: (max |diff|,
+    kernel ms, plain ms)}, the times of step 0 (kernel: the mean of
+    `repeat` launches after a warm-up; plain: one run after a warm-up)."""
+    import torch
+
+    from fhestring_tpu_torch import torus
+    from fhestring_tpu_torch.crypto.kernels import ext_product as ep
+    from fhestring_tpu_torch.crypto.kernels import ntt_ext as ne
+    from fhestring_tpu_torch.crypto.kernels import rotate_decompose as rd
+
+    dev = dkeys.bsk_limbs.device
+    N = dkeys.params.polynomial_size
+    gen = torch.Generator().manual_seed(phase)
+    acc = torch.randint(-2**63, 2**63 - 1, (batch, 2, N), dtype=torch.int64,
+                        generator=gen).to(dev)
+    amt = torch.randint(0, 2 * N, (steps, batch), dtype=torch.int32,
+                        generator=gen)
+    amt[0, :3] = torch.tensor([0, N, 2 * N - 1], dtype=torch.int32)
+    amt = amt.to(dev)
+    result = {}
+    for j in range(steps):
+        a, limbs, khat = amt[j], dkeys.bsk_limbs[j], dkeys.bsk_ntt64[j]
+        dl = rd.rotate_diff_decompose(acc, a)
+        pairs = {
+            "rotate_decompose": (lambda: rd.rotate_diff_decompose(acc, a),
+                                 lambda: rd.rotate_diff_decompose_plain(acc, a)),
+            "ext_product": (lambda: ep.ext_product(dl, limbs),
+                            lambda: ep.ext_product_plain(dl, limbs)),
+            "ntt_ext": (lambda: ne.ntt_ext(dl, khat),
+                        lambda: ne.ntt_ext_plain(dl, khat)),
+        }
+        outs = {}
+        for name, (kernel, plain) in pairs.items():
+            if j == 0:
+                kernel(), plain()  # warm-up
+                ms, got = cuda_ms(kernel, repeat=repeat)
+                plain_ms, want = cuda_ms(plain)
+            else:
+                ms = plain_ms = None
+                got, want = kernel(), plain()
+            err = max_abs_err(got, want)
+            if err or not torch.equal(got, want):
+                fail(f"{name} differs from its plain version at step {j}: "
+                     f"max |diff| {err}")
+            prev = result.get(name, (0, ms, plain_ms))
+            result[name] = (max(prev[0], err), prev[1], prev[2])
+            outs[name] = got
+        if not torch.equal(outs["ext_product"], outs["ntt_ext"]):
+            fail(f"ext_product and ntt_ext differ at step {j}")
+        acc = torus.add(acc, outs["ext_product"])
+    print(f"phase {phase} step-wise kernels vs plain: B={batch} N={N}, "
+          f"{steps} steps of the prod key, bit-exact, K3 = K4; " + "; ".join(
+              f"{name} kernel {ms:.4f} ms, plain {plain_ms:.3f} ms "
+              f"({plain_ms / ms:.1f}x)"
+              for name, (_, ms, plain_ms) in result.items()))
+    return result
+
+
+def stepwise_batches(dkeys, phase):
+    """K5, K3 and K4 against their plain versions on step 0 of the prod key
+    at each B of SWEEP_B, K3 at the body ``items_per_block`` picks; then
+    each K3 body (1 and 4 items per block) at the last B, which leaves the
+    4-item body's last block partly filled."""
+    import torch
+
+    from fhestring_tpu_torch.crypto.kernels import ext_product as ep
+    from fhestring_tpu_torch.crypto.kernels import ntt_ext as ne
+    from fhestring_tpu_torch.crypto.kernels import rotate_decompose as rd
+
+    dev = dkeys.bsk_limbs.device
+    N = dkeys.params.polynomial_size
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    limbs, khat = dkeys.bsk_limbs[0], dkeys.bsk_ntt64[0]
+    gen = torch.Generator().manual_seed(phase)
+    picked = []
+    for b in SWEEP_B:
+        acc = torch.randint(-2**63, 2**63 - 1, (b, 2, N), dtype=torch.int64,
+                            generator=gen).to(dev)
+        a = torch.randint(0, 2 * N, (b,), dtype=torch.int32,
+                          generator=gen).to(dev)
+        dl = rd.rotate_diff_decompose(acc, a)
+        if not torch.equal(dl, rd.rotate_diff_decompose_plain(acc, a)):
+            fail(f"rotate_decompose differs from its plain version at B={b}")
+        want = ep.ext_product_plain(dl, limbs)
+        got = {"ext_product": ep.ext_product(dl, limbs),
+               "ntt_ext": ne.ntt_ext(dl, khat),
+               "ntt_ext plain": ne.ntt_ext_plain(dl, khat)}
+        if b == SWEEP_B[-1]:
+            got.update({f"ext_product<{i}>": ep.ext_product(dl, limbs, items=i)
+                        for i in ep.ITEMS})
+        for name, out in got.items():
+            if not torch.equal(out, want):
+                fail(f"{name} differs from ext_product's plain version at "
+                     f"B={b}: max |diff| {max_abs_err(out, want)}")
+        picked.append(f"B={b}: K3<{ep.items_per_block(b, N, sms)}>")
+    print(f"phase {phase} step-wise kernels vs plain by batch: N={N}, step 0 "
+          f"of the prod key, K5, K3 and K4 bit-exact; " + ", ".join(picked)
+          + "; K3<" + ",".join(map(str, ep.ITEMS)) + "> each at "
+          f"B={SWEEP_B[-1]} bit-exact")
+
+
+STEPWISE_ROUTES = {"K3": {"use_pallas": True}, "K4": {"use_ntt2": True}}
+
+
+def stepwise_pbs(client, dkeys, bank, phase):
+    """pbs_batch of 256 messages through TABLE by both step-wise routes and
+    by K2's exact mode: all decrypt right and the three are bit-identical.
+    Returns ntt_ext's launches over the K4 route's run (set to 0 just
+    before)."""
+    import torch
+
+    from fhestring_tpu_torch import torus
+    from fhestring_tpu_torch.crypto import pbs
+    from fhestring_tpu_torch.crypto.kernels import ntt_ext as ne
+    from fhestring_tpu_torch.numpy_ref import core as ref
+
+    msgs, cts = encrypt_msgs(client, 256, 14)
+    zeros = torch.zeros(len(msgs), dtype=torch.int64, device=client.device)
+    outs, line = {}, []
+    for label, route in {"K2 exact": {}, **STEPWISE_ROUTES}.items():
+        torch.cuda.synchronize()
+        ne.ntt_ext.launches = 0
+        ms, out = cuda_ms(lambda: pbs.pbs_batch(cts, zeros, bank, dkeys,
+                                                **route))
+        if label == "K4":
+            k4_launches = ne.ntt_ext.launches
+        outs[label] = out
+        out = torus.to_numpy(out)
+        bad = sum(ref.shortint_decrypt(client.secret, out[i]) != TABLE[m]
+                  for i, m in enumerate(msgs))
+        if bad:
+            fail(f"pbs_batch ({label}): {bad} of {len(msgs)} outputs "
+                 f"decrypt wrong")
+        line.append(f"{label} {ms:.1f} ms ({len(msgs) / ms * 1e3:.0f} PBS/s)")
+    for label in STEPWISE_ROUTES:
+        if not torch.equal(outs[label], outs["K2 exact"]):
+            fail(f"pbs_batch through the {label} route differs from K2's "
+                 f"exact mode")
+    if k4_launches != dkeys.params.lwe_dimension:
+        fail(f"ntt_ext launches {k4_launches} in one pbs_batch")
+    print(f"phase {phase} step-wise pbs_batch: B={len(msgs)} all decrypt to "
+          f"table[m]; K3 and K4 routes bit-identical to K2 exact; "
+          + "; ".join(line) + f"; ntt_ext launches {k4_launches}")
+    return k4_launches
+
+
+def stepwise_throughput(client, dkeys, bank, phase):
+    """PBS/s of pbs_batch through both step-wise routes at B=STEPWISE_B,
+    one timed run each (their kernels are warm from phase 14), with a
+    decrypt spot check."""
+    import torch
+
+    from fhestring_tpu_torch import torus
+    from fhestring_tpu_torch.crypto import pbs
+    from fhestring_tpu_torch.numpy_ref import core as ref
+
+    msgs, cts = encrypt_msgs(client, STEPWISE_B, 16)
+    zeros = torch.zeros(len(msgs), dtype=torch.int64, device=client.device)
+    line = []
+    for label, route in STEPWISE_ROUTES.items():
+        ms, out = cuda_ms(lambda: pbs.pbs_batch(cts, zeros, bank, dkeys,
+                                                **route))
+        out = torus.to_numpy(out)
+        if any(ref.shortint_decrypt(client.secret, out[i]) != TABLE[msgs[i]]
+               for i in range(0, len(msgs), 64)):
+            fail(f"pbs_batch ({label} route) at B={len(msgs)} decrypts wrong")
+        line.append(f"{label} route {ms:.1f} ms = "
+                    f"{len(msgs) / ms * 1e3:.1f} PBS/s")
+    print(f"phase {phase} step-wise throughput: pbs_batch B={len(msgs)}: "
+          + "; ".join(line))
+
+
 def main() -> int:
     import torch
 
@@ -251,6 +456,9 @@ def main() -> int:
     from fhestring_tpu_torch.crypto.kernels import blind_rotate32 as br
     from fhestring_tpu_torch.crypto.kernels import blind_rotate64 as br64
     from fhestring_tpu_torch.crypto.kernels import cuda_build
+    from fhestring_tpu_torch.crypto.kernels import ext_product as ep
+    from fhestring_tpu_torch.crypto.kernels import ntt_ext as ne
+    from fhestring_tpu_torch.crypto.kernels import rotate_decompose as rd
 
     dev = torch.device("cuda")
 
@@ -265,10 +473,10 @@ def main() -> int:
 
     # 2. kernel builds, in parallel -------------------------------------------
     t0 = time.perf_counter()
-    paths = cuda_build.build("blind_rotate32", "blind_rotate64")
+    paths = cuda_build.build(*cuda_build.sources())
     t_build = time.perf_counter() - t0
-    br.build()
-    br64.build()
+    for module in (br, br64, rd, ep, ne):
+        module.build()
     ptxas = {k: " | ".join(ln.strip() for ln in log.splitlines()
                            if "registers" in ln or "spill" in ln)
              for k, log in cuda_build.LOGS.items()}
@@ -302,7 +510,8 @@ def main() -> int:
     with open(os.path.join(ROOT, "benchmarks", "methods_turbo_r5c.jsonl")) as f:
         turbo_counts = {r["method"]: (r["pbs"], r["pbs_batches"])
                         for r in map(json.loads, f)}
-    launches32 = requests(client, server, br.blind_rotate32, turbo_counts, 6)
+    launches32, = requests(client, server, [(br.blind_rotate32, 1)],
+                           turbo_counts, 6)
     throughput(client, dkeys, bank, br.blind_rotate32,
                br.blind_rotate32_plain,
                lambda g, b: torch.randint(-2**31, 2**31, (b, 2, N),
@@ -343,13 +552,34 @@ def main() -> int:
           f"modes; " + "; ".join(line))
 
     bank = pbs_known_lut(client, dkeys, 10, **prod)
-    launches64 = requests(client, server, br64.blind_rotate64, PROD_COUNTS,
-                          11)
+    launches64, = requests(client, server, [(br64.blind_rotate64, 1)],
+                           PROD_COUNTS, 11)
     throughput(client, dkeys, bank, br64.blind_rotate64,
                br64.blind_rotate64_plain,
                lambda g, b: torch.randint(-2**63, 2**63 - 1, (b, 2, N),
                                           dtype=torch.int64, generator=g),
                khat, 12, **prod)
+
+    # -- PARAM_PROD, the step-wise route: K5, then K3 or K4, per step ------
+    step = stepwise_kernels(dkeys, 13)
+    stepwise_batches(dkeys, 13)
+    k4_launches = stepwise_pbs(client, dkeys, bank, 14)
+    server_nk = client.get_server_key(with_ntt2=False)
+    if server_nk.backend.sc.keys.bsk_ntt64 is not None:
+        fail("get_server_key(with_ntt2=False) packed the NTT key")
+    k5_launches, k3_launches, _ = requests(
+        client, server_nk, [(rd.rotate_diff_decompose, n),
+                            (ep.ext_product, n), (br64.blind_rotate64, 0)],
+        PROD_COUNTS, 15)
+    stepwise_throughput(client, dkeys, bank, 16)
+
+    def stepwise_row(name, line, launches):
+        err, ms, plain_ms = step[name]
+        return {"name": name, "route": "cuda",
+                "source": f"fhestring_tpu_torch/csrc/{name}.cu",
+                "replaces": f"fhestring_tpu/crypto/kernels/{name}.py:{line}",
+                "launches": launches, "max_abs_err": err,
+                "ms": round(ms, 4), "plain_ms": round(plain_ms, 4)}
 
     print(json.dumps({"kernels": [
         {"name": "blind_rotate32", "route": "cuda",
@@ -361,7 +591,10 @@ def main() -> int:
          "source": "fhestring_tpu_torch/csrc/blind_rotate64.cu",
          "replaces": "fhestring_tpu/crypto/kernels/blind_rotate_fused.py:348",
          "launches": launches64, "max_abs_err": err64,
-         "ms": round(ms64, 4), "plain_ms": round(plain_ms64, 4)}]}))
+         "ms": round(ms64, 4), "plain_ms": round(plain_ms64, 4)},
+        stepwise_row("rotate_decompose", 106, k5_launches),
+        stepwise_row("ext_product", 186, k3_launches),
+        stepwise_row("ntt_ext", 408, k4_launches)]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": count}}))
     return 0

@@ -61,13 +61,22 @@ class ClientKey:
                     seed: int | None = 0, device="cpu") -> "ClientKey":
         return cls(params, seed, device=device)
 
-    def get_server_key(self, device=None):
+    def get_server_key(self, device=None, with_ntt2: bool | None = None):
         """Pack the evaluation keys onto ``device`` (default: the client's)
-        and return the ServerKey that evaluates on it."""
+        and return the ServerKey that evaluates on it.
+
+        with_ntt2: also pack the NTT-domain bootstrap key, which the
+        whole-rotation kernels (K1, K2) read.  False leaves it out: a
+        64-bit set is then served by the step-wise K5 + K3 route, and a
+        32-bit set cannot be served (``shortint.pbs_route``).  None (the
+        default) packs it on every device.  The JAX package's default packs
+        it only off CPU; here the CPU path runs the plain versions of K1
+        and K2, which read it.  The bits are the same either way."""
         from .server import ServerKey
 
         device = self.device if device is None else device
-        return ServerKey(pack_server_keys(self._server_raw, device),
+        return ServerKey(pack_server_keys(self._server_raw, device,
+                                          with_ntt2=with_ntt2 is not False),
                          self.params)
 
     def get_public_parameters(self) -> PublicParameters:

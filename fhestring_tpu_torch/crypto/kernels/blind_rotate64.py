@@ -146,6 +146,38 @@ def _limbs(d: torch.Tensor) -> torch.Tensor:
     return torch.stack(out, dim=2)
 
 
+def ext_product_ntt(dl: torch.Tensor, khat_j: torch.Tensor, *,
+                    approx: bool = False) -> torch.Tensor:
+    """One step's external product, the kernel's arithmetic in int64:
+    digit limbs dl int64 [B, k+1, 3, N] (row r, limb la) against one step
+    of the key, khat_j int16 [2, k+1, (k+1)*8, N].  Returns
+    sum_s W_s << 8s (mod 2^64) over the mode's shift planes, int64
+    [B, k+1, N] (output row col)."""
+    B, kp1, _, N = dl.shape
+    dev = dl.device
+    tw = ntt.device_twiddles(N, str(dev))
+    p = torch.tensor(ntt.PRIMES, dtype=torch.int64, device=dev)
+    planes = shift_planes(approx)
+    s0 = planes.start
+    shifts = torch.tensor([8 * s for s in planes], device=dev)
+    dl = dl.reshape(B, kp1 * DIGIT_LIMBS, N)              # (r, la)
+    dhat = ntt.ntt_fwd(dl[None] % p.view(2, 1, 1, 1), tw)
+    dhat = dhat.view(2, B, kp1, DIGIT_LIMBS, N)
+    kh = (khat_j.to(torch.int64) & 0xFFFF).view(
+        2, kp1, kp1, KEY_PLANES64, N)                     # [P, r, col, lb, N]
+    prod = torch.zeros((2, B, kp1, len(planes), N), dtype=torch.int64,
+                       device=dev)
+    for la in range(DIGIT_LIMBS):
+        lb0 = max(0, s0 - la)
+        lb1 = KEY_PLANES64 - la                           # s = la + lb < 8
+        for r in range(kp1):
+            prod[:, :, :, la + lb0 - s0:] += (
+                dhat[:, :, None, None, r, la] * kh[:, None, r, :, lb0:lb1])
+    res = ntt.ntt_inv(prod % p.view(2, 1, 1, 1, 1), tw)   # [P, B, col, s, N]
+    w = ntt.crt_centered(res)                             # W_s [B, col, s, N]
+    return torus.sum_axis(w << shifts.view(1, 1, -1, 1), 2)
+
+
 def blind_rotate64_plain(acc: torch.Tensor, amounts: torch.Tensor,
                          khat: torch.Tensor, *, rounded: bool = False,
                          approx: bool = False) -> torch.Tensor:
@@ -153,33 +185,10 @@ def blind_rotate64_plain(acc: torch.Tensor, amounts: torch.Tensor,
     butterflies and tables), vectorised over the batch, in int64.  Same
     arguments and result as ``blind_rotate64``."""
     _check(acc, amounts, khat)
-    B, kp1, N = acc.shape
-    dev = acc.device
-    tw = ntt.device_twiddles(N, str(dev))
-    p = torch.tensor(ntt.PRIMES, dtype=torch.int64, device=dev)
-    planes = shift_planes(approx)
-    s0 = planes.start
-    shifts = torch.tensor([8 * s for s in planes], device=dev)
     for j in range(amounts.shape[1]):
         d = _digits(acc, amounts[:, j].to(torch.int64), rounded)
-        dl = _limbs(d).reshape(B, kp1 * DIGIT_LIMBS, N)   # (r, la)
-        dhat = ntt.ntt_fwd(dl[None] % p.view(2, 1, 1, 1), tw)
-        dhat = dhat.view(2, B, kp1, DIGIT_LIMBS, N)
-        kh = (khat[j].to(torch.int64) & 0xFFFF).view(
-            2, kp1, kp1, KEY_PLANES64, N)                 # [P, r, col, lb, N]
-        prod = torch.zeros((2, B, kp1, len(planes), N), dtype=torch.int64,
-                           device=dev)
-        for la in range(DIGIT_LIMBS):
-            lb0 = max(0, s0 - la)
-            lb1 = KEY_PLANES64 - la                       # s = la + lb < 8
-            for r in range(kp1):
-                prod[:, :, :, la + lb0 - s0:] += (
-                    dhat[:, :, None, None, r, la]
-                    * kh[:, None, r, :, lb0:lb1])
-        res = ntt.ntt_inv(prod % p.view(2, 1, 1, 1, 1), tw)  # [P, B, col, s, N]
-        w = ntt.crt_centered(res)                         # W_s [B, col, s, N]
-        upd = torus.sum_axis(w << shifts.view(1, 1, -1, 1), 2)
-        acc = torus.add(acc, upd)
+        acc = torus.add(acc, ext_product_ntt(_limbs(d), khat[j],
+                                             approx=approx))
     return acc
 
 

@@ -1,11 +1,12 @@
 """Build and load the package's CUDA kernels (``csrc/*.cu``) with nvcc.
 
 Each source is compiled on its own into a shared library with a plain C
-interface, ``BUILD_DIR/<name>-<hash>.so``, keyed by a hash of the source
-and the flags, and loaded with ctypes.  A build happens at first use, in
-the process that needs it; ``build`` starts one nvcc per missing library,
-all at once, and waits for them, so several kernels build in the time of
-the slowest.  A failed build raises: there is no fallback.
+interface, ``BUILD_DIR/<name>-<hash>.so``, keyed by a hash of the source,
+the shared headers (``csrc/*.cuh``) and the flags, and loaded with ctypes.
+A build happens at first use, in the process that needs it; ``build``
+starts one nvcc per missing library, all at once, and waits for them, so
+several kernels build in the time of the slowest.  A failed build raises:
+there is no fallback.
 """
 
 from __future__ import annotations
@@ -29,10 +30,20 @@ _LIBS: dict[str, ctypes.CDLL] = {}
 
 
 def library_path(name: str) -> str:
-    """Where ``csrc/<name>.cu`` builds to (whether or not it exists yet)."""
-    with open(os.path.join(CSRC, f"{name}.cu"), "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
+    """Where ``csrc/<name>.cu`` builds to (whether or not it exists yet).
+    The key hashes the source, every header under ``csrc/`` (a source may
+    include any of them) and the flags, so an edited header rebuilds."""
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    headers = sorted(f for f in os.listdir(CSRC) if f.endswith(".cuh"))
+    for fname in [f"{name}.cu", *headers]:
+        with open(os.path.join(CSRC, fname), "rb") as f:
+            digest.update(fname.encode() + b"\0" + f.read())
     return os.path.join(BUILD_DIR, f"{name}-{digest.hexdigest()[:16]}.so")
+
+
+def sources() -> list[str]:
+    """Names of every kernel source, ``csrc/<name>.cu``."""
+    return sorted(f[:-3] for f in os.listdir(CSRC) if f.endswith(".cu"))
 
 
 def build(*names: str) -> list[str]:

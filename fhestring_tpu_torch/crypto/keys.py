@@ -16,7 +16,13 @@ device path reads:
   (1/N folded in) of the P balanced byte limbs of each key value, as u16
   residues stored in int16 bits.  P = 4 limbs of the u32 payload
   (``kernels/blind_rotate32.py``) or P = 8 limbs of the u64 value
-  (``kernels/blind_rotate64.py``).
+  (``kernels/blind_rotate64.py``, whose step ``kernels/ntt_ext.py`` reads
+  it too).  Packed unless ``with_ntt2=False``.
+- 64-bit bootstrap key limbs: int8 [n, R, k+1, 8, N], the 8 balanced byte
+  limbs of each u64 key value, for the step-wise external product
+  (``kernels/ext_product.py``).  This is the JAX ``bsk_limbs[..., :N]``;
+  the JAX package's doubling to 2N (and the kernel's to 4N) is a layout for
+  the TPU's lanes and is not kept.  PARAM_PROD: 48.6 MB.
 - LUT bank: doubled test polynomials, int64 torus [L, 2N].
 
 These replace the JAX package's ``crypto/keys.py`` layouts; the numpy
@@ -59,6 +65,9 @@ class DeviceServerKeys:
     # int16 [n, 2(prime), R, (k+1)*8, N]: NTT-domain bootstrap key of a
     # 64-bit-torus set, else None.
     bsk_ntt64: torch.Tensor | None = None
+    # int8 [n, R, k+1, 8, N]: byte limbs of a 64-bit-torus bootstrap key
+    # (the step-wise route), else None.
+    bsk_limbs: torch.Tensor | None = None
 
     @property
     def device(self) -> torch.device:
@@ -126,17 +135,40 @@ def pack_ksk(ksk, p: CryptoParams, device) -> torch.Tensor:
     return padded
 
 
-def pack_server_keys(srv_or_arrays, device, params: CryptoParams | None = None
-                     ) -> DeviceServerKeys:
+def pack_bsk_limbs(bsk, device) -> torch.Tensor:
+    """u64 [n, R, k+1, N] key polys (numpy or int64 tensor) -> int8
+    [n, R, k+1, 8, N]: the balanced byte limbs of each value (limb 7's
+    carry dropped, as ``fhestring_tpu.crypto.keys.balanced_limbs_u64``)."""
+    bsk = bsk if torch.is_tensor(bsk) else torus.from_numpy(bsk)
+    n_steps, R, kp1, N = bsk.shape
+    out = torch.empty((n_steps, R, kp1, KEY_PLANES64, N), dtype=torch.int8,
+                      device=device)
+    for s in range(0, n_steps, _STEP_CHUNK):
+        limbs = balanced_limbs(bsk[s:s + _STEP_CHUNK].to(device), KEY_PLANES64)
+        out[s:s + _STEP_CHUNK] = limbs.movedim(-1, -2)
+    return out
+
+
+def pack_server_keys(srv_or_arrays, device, params: CryptoParams | None = None,
+                     with_ntt2: bool = True) -> DeviceServerKeys:
     """Pack the numpy ``bsk`` and ``ksk`` arrays of a ``ServerKeys`` (this
     package's numpy_ref or the JAX package's: the arrays are the same) onto
     ``device``, in the layout of the parameter set's torus family.
     ``params`` (default: ``srv_or_arrays.params``) names the parameter set
-    the device keys are tagged with."""
+    the device keys are tagged with.
+
+    with_ntt2: pack the NTT-domain bootstrap key (``bsk_ntt32`` or
+    ``bsk_ntt64``), which the whole-rotation kernels read.  A 64-bit set
+    always gets ``bsk_limbs`` too, as the JAX package's
+    ``pack_server_keys`` always packs its limb key."""
     bsk, ksk = srv_or_arrays.bsk, srv_or_arrays.ksk
     p = params or srv_or_arrays.params
-    khat = pack_bsk_ntt(bsk, device, key_planes(p))
     keys = DeviceServerKeys(params=p, ksk_limbs=pack_ksk(ksk, p, device))
+    if p.torus_bits == 64:
+        keys.bsk_limbs = pack_bsk_limbs(bsk, device)
+    if not with_ntt2:
+        return keys
+    khat = pack_bsk_ntt(bsk, device, key_planes(p))
     if p.torus_bits == 32:
         keys.bsk_ntt32 = khat
     else:

@@ -6,13 +6,25 @@ Pipeline (KS -> PBS order, as the JAX package's ``crypto/pbs.py``):
                        --modswitch-->  Z_{2N} coefficients
                        --test-poly rotation--> GLWE accumulator
                        --blind rotate--> (kernels/blind_rotate32.py or
-                                          kernels/blind_rotate64.py)
+                                          kernels/blind_rotate64.py, or
+                                          step by step: below)
                        --sample extract--> LWE(big key) of table[m]
 
 Torus values are int64 tensors holding the u64 residue (``torus.py``).  In
 the 32-bit-torus family (turbo) every value is a multiple of 2**32, so the
 blind rotation carries only the u32 payload (int32); the 64-bit family
 (``PARAM_PROD``) carries the whole int64 accumulator.
+
+The 64-bit family has two blind-rotation routes, as the JAX package has:
+one launch of the whole n-step kernel (``blind_rotate64``, K2), or the
+step-wise route, one prologue and one external product per LWE step:
+
+    for j in range(n):
+        dl  = rotate_diff_decompose(acc, a_j)            (K5)
+        acc = acc + ext_product(dl, bsk_limbs[j])        (K3, use_pallas)
+                  | ntt_ext(dl, bsk_ntt64[j])            (K4, use_ntt2)
+
+Both step-wise routes are exact and give the bits of K2's exact mode.
 """
 
 from __future__ import annotations
@@ -24,6 +36,9 @@ from ..params import CryptoParams
 from .keys import DeviceServerKeys, key_planes
 from .kernels import blind_rotate32 as br
 from .kernels import blind_rotate64 as br64
+from .kernels import ext_product as ep
+from .kernels import ntt_ext as ne
+from .kernels import rotate_decompose as rd
 
 
 def _check_kernel_shape(p: CryptoParams) -> None:
@@ -129,21 +144,54 @@ def sample_extract(acc: torch.Tensor, p: CryptoParams) -> torch.Tensor:
     return torch.cat([a.reshape(acc.shape[0], -1), acc[:, k, :1]], dim=-1)
 
 
+def _blind_rotate_stepwise(acc: torch.Tensor, amounts: torch.Tensor,
+                           keys: DeviceServerKeys,
+                           use_ntt2: bool) -> torch.Tensor:
+    """The step-wise 64-bit route: per step K5, then K4 (use_ntt2) or K3,
+    then acc += ext.  Nothing in the loop reads back to the host, so on the
+    card the 2n launches queue without a sync."""
+    key = keys.bsk_ntt64 if use_ntt2 else keys.bsk_limbs
+    if key is None:
+        raise ValueError("the step-wise route needs "
+                         + ("bsk_ntt64: pack_server_keys(with_ntt2=True)"
+                            if use_ntt2 else "bsk_limbs (a 64-bit set)"))
+    product = ne.ntt_ext if use_ntt2 else ep.ext_product
+    steps = amounts.t().contiguous()                    # [n, B]
+    for j in range(steps.shape[0]):
+        dl = rd.rotate_diff_decompose(acc, steps[j])
+        acc = torus.add(acc, product(dl, key[j]))
+    return acc
+
+
 def blind_rotate(acc: torch.Tensor, lwe_2n: torch.Tensor,
                  keys: DeviceServerKeys, rounded: bool = False,
-                 approx: bool = False) -> torch.Tensor:
+                 approx: bool = False, use_pallas: bool = False,
+                 use_ntt2: bool = False) -> torch.Tensor:
     """acc: int64 [B, k+1, N]; lwe_2n: int64 [B, n+1] in [0, 2N).  Rotates
     acc by -phase homomorphically: first by -b (the body, column n), then
-    the n-step kernel over the mask coefficients.
+    the n steps over the mask coefficients.
 
     rounded/approx select the 64-bit kernel's mode, with the JAX meaning
     (``numpy_ref.blind_rotate(rounded=rounded, min_shift=3 if approx else
-    0)``); the 32-bit kernel runs the exact mode only."""
+    0)``); the 32-bit kernel runs the exact mode only.
+
+    use_pallas / use_ntt2 (the JAX package's keyword names) take the 64-bit
+    step-wise route (module docstring), exact mode only: use_pallas means
+    the K3 route (``ext_product`` against ``keys.bsk_limbs``), use_ntt2 the
+    K4 route (``ntt_ext`` against ``keys.bsk_ntt64``); use_ntt2 wins when
+    both are set, as in the JAX package.  Neither: the whole-rotation
+    kernel of the family."""
     p = keys.params
     _check_kernel_shape(p)
     two_n = 2 * p.polynomial_size
     acc = negacyclic_rotate(acc, (two_n - lwe_2n[:, -1]) & (two_n - 1))
     amounts = lwe_2n[:, :p.lwe_dimension].to(torch.int32).contiguous()
+    if use_pallas or use_ntt2:
+        if p.torus_bits != 64 or rounded or approx:
+            raise ValueError("the step-wise route is the 64-bit family's "
+                             "exact mode only")
+        return _blind_rotate_stepwise(acc.contiguous(), amounts, keys,
+                                      use_ntt2)
     if p.torus_bits == 64:
         return br64.blind_rotate64(acc.contiguous(), amounts, keys.bsk_ntt64,
                                    rounded=rounded, approx=approx)
@@ -160,12 +208,14 @@ def blind_rotate(acc: torch.Tensor, lwe_2n: torch.Tensor,
 
 def pbs_batch(ct: torch.Tensor, lut_idx: torch.Tensor, lut_bank: torch.Tensor,
               keys: DeviceServerKeys, rounded: bool = False,
-              approx: bool = False) -> torch.Tensor:
+              approx: bool = False, use_pallas: bool = False,
+              use_ntt2: bool = False) -> torch.Tensor:
     """Apply per-item LUTs to a batch of big-key LWE ciphertexts.
 
     ct: int64 [B, kN+1]; lut_idx: int64 [B] into lut_bank int64 [L, 2N].
     Returns int64 [B, kN+1] encrypting table[m] with fresh PBS noise.
-    rounded/approx: the blind rotation's mode (``blind_rotate``).
+    rounded/approx: the blind rotation's mode; use_pallas: the K3
+    step-wise route; use_ntt2: the K4 step-wise route (``blind_rotate``).
     """
     p = keys.params
     _check_kernel_shape(p)
@@ -183,4 +233,5 @@ def pbs_batch(ct: torch.Tensor, lut_idx: torch.Tensor, lut_bank: torch.Tensor,
                      body[:, None, :]], dim=1)
     lwe_nob = torch.cat([lwe_2n[:, :-1], lwe_2n.new_zeros((B, 1))], dim=1)
     return sample_extract(
-        blind_rotate(acc, lwe_nob, keys, rounded=rounded, approx=approx), p)
+        blind_rotate(acc, lwe_nob, keys, rounded=rounded, approx=approx,
+                     use_pallas=use_pallas, use_ntt2=use_ntt2), p)

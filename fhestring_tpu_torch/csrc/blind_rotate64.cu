@@ -45,52 +45,20 @@
 // every block re-reads this step's 256 KB (approx: 224 KB) of key hats
 // from L2 or device memory on every step; blocks on the same step share it
 // through L2.
+//
+// The transforms, the pointwise products and the CRT are in ntt64.cuh,
+// shared with the one-step external product ntt_ext.cu.
 
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "ntt64.cuh"
+
 namespace {
 
-constexpr uint32_t kP0 = 40961;
-constexpr uint32_t kP1 = 61441;
-constexpr uint32_t kM = kP0 * kP1;     // 2,516,684,801 < 2^32
-constexpr uint32_t kInvP0 = 3;         // 40961^-1 mod 61441
-constexpr int kRows = 2;               // k + 1 (= digit rows R at ell = 1)
-constexpr int kBaseLog = 23;
-constexpr uint32_t kDigitMask = (1u << kBaseLog) - 1;
-constexpr uint32_t kDigitHalf = 1u << (kBaseLog - 1);
-constexpr int kLimbs = 3;              // balanced int8 limbs of a digit
-constexpr int kDigitPolys = kRows * kLimbs;
-constexpr int kKeyPlanes = 8;          // byte limbs of a u64 key value
-constexpr int kKeyPolys = kRows * kKeyPlanes;   // per digit row and prime
+using namespace ntt64;
+
 constexpr int kThreads = 1024;
-
-static_assert(kInvP0 * kP0 % kP1 == 1, "CRT inverse");
-
-// Shift planes s in [kS0, 8) of the mode; kOut product polys per prime.
-template <bool kApprox>
-struct Planes {
-  static constexpr int kS0 = kApprox ? 3 : 0;
-  static constexpr int kCount = kKeyPlanes - kS0;
-  static constexpr int kOut = kRows * kCount;
-  static_assert(kOut >= kDigitPolys, "work buffer holds the digit polys");
-};
-
-template <uint32_t P>
-__device__ __forceinline__ uint32_t mul_mod(uint32_t a, uint32_t b) {
-  return (a * b) % P;  // a, b < P < 2^16
-}
-
-template <uint32_t P>
-__device__ __forceinline__ uint32_t add_mod(uint32_t a, uint32_t b) {
-  const uint32_t s = a + b;
-  return s >= P ? s - P : s;
-}
-
-template <uint32_t P>
-__device__ __forceinline__ uint32_t sub_mod(uint32_t a, uint32_t b) {
-  return a >= b ? a - b : a + P - b;
-}
 
 // round(v >> 41) mod 2^23 from the high word of v: (v >> 41) + bit 40.
 __device__ __forceinline__ uint32_t round_top(uint64_t v) {
@@ -109,141 +77,30 @@ __device__ void load_digits(uint32_t* x, const uint64_t* acc, int a, int n,
     const int t = idx & (n - 1);
     const int src = (t - a) & (2 * n - 1);
     const uint64_t from = acc[r * n + (src & (n - 1))];
-    uint32_t state;
+    int d;
     if (kRounded) {
       uint32_t rot = round_top(from);
       if (src >= n) rot = (0u - rot) & kDigitMask;
-      state = (rot - round_top(acc[idx])) & kDigitMask;
+      d = centered_digit((rot - round_top(acc[idx])) & kDigitMask);
     } else {
-      const uint64_t rot = src >= n ? 0ull - from : from;
-      const uint64_t diff = rot - acc[idx];
-      state = static_cast<uint32_t>((diff >> 41) + ((diff >> 40) & 1ull)) &
-              kDigitMask;
+      d = exact_digit((src >= n ? 0ull - from : from) - acc[idx]);
     }
-    int d = static_cast<int>(state) -
-            (state >= kDigitHalf ? static_cast<int>(1u << kBaseLog) : 0);
+    int limb[kLimbs];
+    digit_limbs(d, limb);
 #pragma unroll
-    for (int la = 0; la < kLimbs; ++la) {
-      const int limb = ((d + 128) & 255) - 128;
-      d = (d - limb) / 256;  // exact: d - limb is a multiple of 256
-      x[(r * kLimbs + la) * n + t] =
-          limb < 0 ? static_cast<uint32_t>(limb + static_cast<int>(P))
-                   : static_cast<uint32_t>(limb);
-    }
-  }
-  __syncthreads();
-}
-
-// Forward negacyclic NTT of npoly polys in place: Cooley-Tukey, natural
-// order in, bit-reversed out; psi_rev[k] = psi^bitrev(k).
-template <uint32_t P>
-__device__ void ntt_fwd(uint32_t* x, int npoly, int n, int log_n,
-                        const uint32_t* __restrict__ psi_rev) {
-  const int half = n >> 1;
-  const int total = npoly * half;
-  for (int m = 1, log_t = log_n - 1; m < n; m <<= 1, --log_t) {
-    const int t = 1 << log_t;
-    for (int idx = threadIdx.x; idx < total; idx += blockDim.x) {
-      const int k = idx & (half - 1);
-      const int i = k >> log_t;
-      uint32_t* a = x + (idx >> (log_n - 1)) * n;
-      const int j0 = (i << (log_t + 1)) + (k & (t - 1));
-      const uint32_t u = a[j0];
-      const uint32_t v = mul_mod<P>(a[j0 + t], __ldg(psi_rev + m + i));
-      a[j0] = add_mod<P>(u, v);
-      a[j0 + t] = sub_mod<P>(u, v);
-    }
-    __syncthreads();
-  }
-}
-
-// Inverse: Gentleman-Sande, bit-reversed in, natural out,
-// psi_inv_rev[k] = psi^-bitrev(k); no 1/N scaling (the key carries it).
-template <uint32_t P>
-__device__ void ntt_inv(uint32_t* x, int npoly, int n, int log_n,
-                        const uint32_t* __restrict__ psi_inv_rev) {
-  const int half = n >> 1;
-  const int total = npoly * half;
-  for (int h = half, log_t = 0; h >= 1; h >>= 1, ++log_t) {
-    const int t = 1 << log_t;
-    for (int idx = threadIdx.x; idx < total; idx += blockDim.x) {
-      const int k = idx & (half - 1);
-      const int i = k >> log_t;
-      uint32_t* a = x + (idx >> (log_n - 1)) * n;
-      const int j0 = (i << (log_t + 1)) + (k & (t - 1));
-      const uint32_t u = a[j0];
-      const uint32_t v = a[j0 + t];
-      a[j0] = add_mod<P>(u, v);
-      a[j0 + t] = mul_mod<P>(sub_mod<P>(u, v), __ldg(psi_inv_rev + h + i));
-    }
-    __syncthreads();
-  }
-}
-
-// x[col * kCount + s - kS0][h] = sum_r sum_{la + lb = s} x[r * 3 + la][h] *
-// key[r][col * 8 + lb][h] mod P, in place: each column h is read and
-// written by one thread only.  key: this step's and this prime's hats,
-// u16 [R][16][n].
-template <uint32_t P, bool kApprox>
-__device__ void pointwise(uint32_t* x, const uint16_t* __restrict__ key,
-                          int n) {
-  using Pl = Planes<kApprox>;
-  constexpr int kLb0 = Pl::kS0 > kLimbs - 1 ? Pl::kS0 - (kLimbs - 1) : 0;
-  for (int h = threadIdx.x; h < n; h += blockDim.x) {
-    uint32_t d[kDigitPolys];
-#pragma unroll
-    for (int i = 0; i < kDigitPolys; ++i) d[i] = x[i * n + h];
-    uint32_t out[Pl::kOut];
-#pragma unroll
-    for (int o = 0; o < Pl::kOut; ++o) out[o] = 0;
-#pragma unroll
-    for (int r = 0; r < kRows; ++r) {
-#pragma unroll
-      for (int col = 0; col < kRows; ++col) {
-#pragma unroll
-        for (int lb = kLb0; lb < kKeyPlanes; ++lb) {
-          const uint32_t k =
-              __ldg(key + (r * kKeyPolys + col * kKeyPlanes + lb) * n + h);
-#pragma unroll
-          for (int la = 0; la < kLimbs; ++la) {
-            const int s = la + lb;
-            if (s >= Pl::kS0 && s < kKeyPlanes)
-              out[col * Pl::kCount + s - Pl::kS0] +=
-                  mul_mod<P>(d[r * kLimbs + la], k);
-          }
-        }
-      }
-    }
-#pragma unroll
-    for (int o = 0; o < Pl::kOut; ++o) x[o * n + h] = out[o] % P;
+    for (int la = 0; la < kLimbs; ++la)
+      x[(r * kLimbs + la) * n + t] = limb_residue<P>(limb[la]);
   }
   __syncthreads();
 }
 
 // acc[r][t] += sum_s W_s << 8s, W_s rebuilt from its residues mod P0
-// (res0) and mod P1 (x) by a centered Garner CRT.
+// (res0) and mod P1 (x).
 template <bool kApprox>
 __device__ void crt_accumulate(uint64_t* acc, const uint16_t* res0,
                                const uint32_t* x, int n, int log_n) {
-  using Pl = Planes<kApprox>;
-  for (int idx = threadIdx.x; idx < kRows * n; idx += blockDim.x) {
-    const int r = idx >> log_n;
-    const int t = idx & (n - 1);
-    uint64_t sum = 0;
-#pragma unroll
-    for (int i = 0; i < Pl::kCount; ++i) {
-      const int o = (r * Pl::kCount + i) * n + t;
-      const uint32_t r0 = res0[o];  // < P0 < P1
-      const uint32_t r1 = x[o];
-      const uint32_t d = r1 >= r0 ? r1 - r0 : r1 + kP1 - r0;
-      const uint32_t x2 = (d * kInvP0) % kP1;
-      const uint32_t v = r0 + kP0 * x2;  // the residue pair's value in [0, M)
-      const int64_t w = v > kM / 2 ? static_cast<int64_t>(v) - kM
-                                   : static_cast<int64_t>(v);
-      sum += static_cast<uint64_t>(w) << (8 * (i + Pl::kS0));
-    }
-    acc[idx] += sum;
-  }
+  for (int idx = threadIdx.x; idx < kRows * n; idx += blockDim.x)
+    acc[idx] += crt_sum<kApprox>(res0, x, idx >> log_n, idx & (n - 1), n);
   __syncthreads();
 }
 
@@ -253,9 +110,7 @@ __device__ void external_product_mod(uint32_t* x, const uint64_t* acc, int a,
                                      const uint32_t* __restrict__ tw, int n,
                                      int log_n) {
   load_digits<P, kRounded>(x, acc, a, n, log_n);
-  ntt_fwd<P>(x, kDigitPolys, n, log_n, tw);
-  pointwise<P, kApprox>(x, key, n);
-  ntt_inv<P>(x, Planes<kApprox>::kOut, n, log_n, tw + n);
+  product_mod<P, kApprox>(x, key, tw, n, log_n);
 }
 
 template <bool kRounded, bool kApprox>
@@ -284,9 +139,7 @@ blind_rotate64_kernel(const uint64_t* __restrict__ acc_in,
     const uint16_t* key = khat + 2 * prime_stride * j;
     external_product_mod<kP0, kRounded, kApprox>(x, acc, a, key, tw, n,
                                                  log_n);
-    for (int idx = threadIdx.x; idx < kOut * n; idx += blockDim.x)
-      res0[idx] = static_cast<uint16_t>(x[idx]);
-    __syncthreads();
+    save_residues(res0, x, kOut * n);
     external_product_mod<kP1, kRounded, kApprox>(
         x, acc, a, key + prime_stride, tw + 2 * n, n, log_n);
     crt_accumulate<kApprox>(acc, res0, x, n, log_n);

@@ -48,6 +48,35 @@ def _with_body_added(ct: torch.Tensor, value: int) -> torch.Tensor:
     return out
 
 
+def pbs_route(keys: DeviceServerKeys, on_cpu: bool) -> dict:
+    """The ``pbs_batch`` keywords of the served path: the blind-rotation
+    route and mode, as the JAX package chooses them
+    (``fhestring_tpu/shortint.py`` ``_pbs_padded``):
+
+    - 32-bit set: the whole-rotation kernel K1, exact.  Without its NTT key
+      the JAX package runs an XLA einsum, which is not ported: ValueError.
+    - 64-bit set with the NTT key (``bsk_ntt64``): the whole-rotation kernel
+      K2, rounded + approx on the card (the JAX package's accelerator mode,
+      calibrated on device in benchmarks/calibration_prod_r5.log), exact on
+      CPU, as the JAX package's CPU path.
+    - 64-bit set without it: the step-wise K5 + K3 route (``use_pallas``),
+      exact, as the JAX package on an accelerator.
+
+    On CPU every route runs its kernels' plain versions, exact, so CPU
+    outputs are bit-identical to the JAX package's CPU path whichever keys
+    were packed."""
+    if keys.params.torus_bits == 32:
+        if keys.bsk_ntt32 is None:
+            raise ValueError(
+                "a 32-bit set needs its NTT-domain key: the JAX package's "
+                "route without it (an XLA einsum) is not ported yet "
+                "(ROADMAP.md); pack with with_ntt2=None or True")
+        return {}
+    if keys.bsk_ntt64 is None:
+        return {"use_pallas": True}
+    return {"rounded": not on_cpu, "approx": not on_cpu}
+
+
 class ShortintContext:
     """Server-side evaluator: owns device keys and a LUT cache."""
 
@@ -124,15 +153,9 @@ class ShortintContext:
         Batches wider than the chunk size run in chunks (bounds the
         keyswitch and accumulator memory).  On CPU the batch is padded to a
         power of two, as the JAX package pads on CPU, so counts and padded
-        counts match it there.  The CUDA kernel takes any batch, so on the
-        card nothing is padded.
-
-        The blind rotation's mode mirrors the JAX package's choice: on the
-        card the 64-bit set runs its kernel rounded + approx (the JAX
-        package's accelerator default, calibrated on device in
-        benchmarks/calibration_prod_r5.log); on CPU it runs exact, as the
-        JAX package's CPU path does, so CPU outputs stay bit-identical to
-        it.  The 32-bit set runs exact everywhere."""
+        counts match it there.  The CUDA kernels take any batch, so on the
+        card nothing is padded.  The blind-rotation route and mode are
+        ``pbs_route``'s."""
         n = flat.shape[0]
         on_cpu = flat.device.type == "cpu"
         max_chunk = 4096 if on_cpu else 8192
@@ -149,9 +172,8 @@ class ShortintContext:
         if padded != n:
             flat = torch.cat([flat, flat.new_zeros((padded - n, flat.shape[1]))])
             idx = torch.cat([idx, idx.new_zeros(padded - n)])
-        fast = not on_cpu and self.params.torus_bits == 64
-        return pbs_batch(flat, idx, bank, self.keys, rounded=fast,
-                         approx=fast)[:n]
+        return pbs_batch(flat, idx, bank, self.keys,
+                         **pbs_route(self.keys, on_cpu))[:n]
 
     def apply_lut(self, a: Blocks, table) -> Blocks:
         """Univariate LUT via one batched PBS. table: 16 ints in [0, 16)."""

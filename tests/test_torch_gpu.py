@@ -1,6 +1,7 @@
-"""The blind-rotation CUDA kernels on the card, against their plain
-versions: blind_rotate32 (turbo) and blind_rotate64 (PARAM_PROD family, in
-its exact, rounded, rounded + approx and approx modes).
+"""The CUDA kernels on the card, against their plain versions:
+blind_rotate32 (turbo), blind_rotate64 (PARAM_PROD family, in its exact,
+rounded, rounded + approx and approx modes), and the step-wise 64-bit
+route's rotate_decompose, ext_product and ntt_ext.
 
 These tests need a CUDA device and nvcc; without them they skip.  Run them
 on a GPU machine with ``python -m pytest --noconftest -m gpu
@@ -24,6 +25,9 @@ from fhestring_tpu_torch.crypto import keys, pbs
 from fhestring_tpu_torch.crypto.kernels import blind_rotate32 as br
 from fhestring_tpu_torch.crypto.kernels import blind_rotate64 as br64
 from fhestring_tpu_torch.crypto.kernels import cuda_build
+from fhestring_tpu_torch.crypto.kernels import ext_product as ep
+from fhestring_tpu_torch.crypto.kernels import ntt_ext as ne
+from fhestring_tpu_torch.crypto.kernels import rotate_decompose as rd
 from fhestring_tpu_torch.numpy_ref import core as ref
 
 pytestmark = pytest.mark.gpu
@@ -240,5 +244,153 @@ def test_contains64_on_cuda_equals_cpu_in_the_same_mode(cuda, monkeypatch):
 
     monkeypatch.setattr(shortint, "pbs_batch", production)
     cpu_out = ck.get_server_key("cpu").contains(s, pat)
+    assert torch.equal(out.blocks.ct.cpu(), cpu_out.blocks.ct)
+    assert ck.decrypt_char(out) == 1
+
+
+# ---------------------------------------------------------------------------
+# the step-wise 64-bit route: rotate_decompose (K5), ext_product (K3),
+# ntt_ext (K4)
+# ---------------------------------------------------------------------------
+
+STEPWISE = [rd.rotate_diff_decompose, ep.ext_product, ne.ntt_ext]
+
+
+@pytest.fixture(scope="module")
+def stepwise(cuda):
+    cuda_build.build("rotate_decompose", "ext_product", "ntt_ext")
+    rd.build()
+    ep.build()
+    ne.build()
+    return cuda
+
+
+def _launches():
+    return [k.launches for k in STEPWISE]
+
+
+@pytest.mark.parametrize("B,n_steps,n", [(1, 3, 256), (33, 5, 256),
+                                         (8, 2, 2048), (32, 2, 2048),
+                                         (33, 2, 2048), (99, 2, 2048)])
+def test_stepwise_kernels_match_plain(stepwise, B, n_steps, n):
+    """n_steps of K5, then K3 and K4 on its digits, each against its plain
+    version, with K3 equal to K4 (both keys hold the same u64 values); the
+    accumulator advances by the product, as in pbs._blind_rotate_stepwise.
+    Step 0 takes the amounts 0, N and 2N - 1.  At N=2048 on 132 SMs, K3
+    runs 1 item per block up to B = 32 and 4 from B = 33."""
+    gen = torch.Generator().manual_seed(B * n + n_steps)
+    acc = torch.randint(-2**63, 2**63 - 1, (B, 2, n), dtype=torch.int64,
+                        generator=gen).to(stepwise)
+    amt = torch.randint(0, 2 * n, (n_steps, B), dtype=torch.int32,
+                        generator=gen)
+    amt[0, :3] = torch.tensor([0, n, 2 * n - 1], dtype=torch.int32)[:B]
+    bsk = torch.randint(-2**63, 2**63 - 1, (n_steps, 2, 2, n),
+                        dtype=torch.int64, generator=gen)
+    limbs = keys.pack_bsk_limbs(bsk, stepwise)
+    khat = keys.pack_bsk_ntt(bsk, stepwise, keys.KEY_PLANES64)
+    before = _launches()
+    for j in range(n_steps):
+        a = amt[j].to(stepwise)
+        dl = rd.rotate_diff_decompose(acc, a)
+        assert torch.equal(dl, rd.rotate_diff_decompose_plain(acc, a))
+        ext = ep.ext_product(dl, limbs[j])
+        assert torch.equal(ext, ep.ext_product_plain(dl, limbs[j]))
+        ext4 = ne.ntt_ext(dl, khat[j])
+        assert torch.equal(ext4, ne.ntt_ext_plain(dl, khat[j]))
+        assert torch.equal(ext4, ext)
+        acc = torus.add(acc, ext)
+    torch.cuda.synchronize()
+    assert _launches() == [b + n_steps for b in before]
+
+
+@pytest.mark.parametrize("items", ep.ITEMS)
+@pytest.mark.parametrize("n", [256, 2048])
+def test_ext_product_every_body_matches_plain(stepwise, n, items):
+    """Each K3 body (items per block) against the plain version at B=99,
+    which leaves the 4-item body's last block partly filled."""
+    gen = torch.Generator().manual_seed(n + items)
+    dl = torch.randint(-128, 128, (3, 99, 2 * n), dtype=torch.int8,
+                       generator=gen).to(stepwise)
+    bsk = torch.randint(-2**63, 2**63 - 1, (1, 2, 2, n), dtype=torch.int64,
+                        generator=gen)
+    limbs = keys.pack_bsk_limbs(bsk, stepwise)[0]
+    before = ep.ext_product.launches
+    got = ep.ext_product(dl, limbs, items=items)
+    torch.cuda.synchronize()
+    assert ep.ext_product.launches == before + 1
+    assert torch.equal(got, ep.ext_product_plain(dl, limbs))
+
+
+@pytest.mark.parametrize("n", [256, 2048])
+def test_rotate_decompose_digit_boundaries(stepwise, n):
+    """Accumulators whose differences put the digits on the rounding and
+    sign boundaries (states 2^22 - 1, 2^22, 0, 2^23 - 1, with and without
+    the round bit 40), rotated by 0, 1, N - 1, N, N + 1 and 2N - 1."""
+    tops = [(1 << 22) - 1, 1 << 22, 0, (1 << 23) - 1, 1, (1 << 22) + 1]
+    lows = [0, 1 << 40, (1 << 40) - 1, (1 << 41) - 1, 1 << 39]
+    vals = [((t << 41) | lo) % (1 << 64) for t in tops for lo in lows]
+    vals = (vals * (2 * n // len(vals) + 1))[:2 * n]
+    acc = torus.from_numpy(np.array(vals, np.uint64).reshape(1, 2, n),
+                           stepwise)
+    amounts = [0, 1, n - 1, n, n + 1, 2 * n - 1]
+    acc = torch.cat([acc, -acc] * 3)
+    amt = torch.tensor(amounts, dtype=torch.int32, device=stepwise)
+    got = rd.rotate_diff_decompose(acc, amt)
+    assert torch.equal(got, rd.rotate_diff_decompose_plain(acc, amt))
+    digits = (got[0].long() + 256 * got[1].long() + 65536 * got[2].long())
+    assert int(digits.min()) >= -(1 << 22) and int(digits.max()) < 1 << 22
+
+
+@pytest.mark.parametrize("B", [5, 40])
+@pytest.mark.parametrize("route", [{"use_pallas": True}, {"use_ntt2": True}],
+                         ids=["k3", "k4"])
+def test_stepwise_pbs_batch_cuda_equals_cpu(stepwise, key_material64, B,
+                                            route):
+    """pbs_batch through each step-wise route on the card equals the same
+    route on CPU and K2's exact mode on the card; n launches of K5 and of
+    the route's product kernel."""
+    srv, dev = key_material64
+    cpu = keys.pack_server_keys(srv, "cpu", params=P64)
+    rng = np.random.default_rng(B)
+    cts = rng.integers(0, 1 << 64, size=(B, P64.big_lwe_dimension + 1),
+                       dtype=np.uint64)
+    idx = torch.from_numpy(np.arange(B) % 2)
+    tables = [[(3 * x + 1) % 16 for x in range(16)], list(range(16))]
+    product = ne.ntt_ext if "use_ntt2" in route else ep.ext_product
+    before = (rd.rotate_diff_decompose.launches, product.launches)
+    got = pbs.pbs_batch(torus.from_numpy(cts, stepwise), idx.to(stepwise),
+                        keys.pack_luts(tables, P64, stepwise), dev, **route)
+    n = P64.lwe_dimension
+    assert (rd.rotate_diff_decompose.launches,
+            product.launches) == (before[0] + n, before[1] + n)
+    whole = pbs.pbs_batch(torus.from_numpy(cts, stepwise), idx.to(stepwise),
+                          keys.pack_luts(tables, P64, stepwise), dev)
+    want = pbs.pbs_batch(torus.from_numpy(cts), idx,
+                         keys.pack_luts(tables, P64, "cpu"), cpu, **route)
+    np.testing.assert_array_equal(torus.to_numpy(got), torus.to_numpy(want))
+    np.testing.assert_array_equal(torus.to_numpy(whole), torus.to_numpy(want))
+
+
+def test_contains_without_ntt_key_on_cuda_equals_cpu(stepwise):
+    """A ServerKey packed with with_ntt2=False serves contains through K5 +
+    K3 on the card (n launches of each per PBS batch, no K2), equal to the
+    CPU path on the same keys; both run exact."""
+    ck = ClientKey(P64, seed=1)
+    s, pat = ck.encrypt("hello", 1), ck.encrypt_no_padding("ll")
+    server = ck.get_server_key(stepwise, with_ntt2=False)
+    assert server.backend.sc.keys.bsk_ntt64 is None
+    before = (rd.rotate_diff_decompose.launches, ep.ext_product.launches,
+              br64.blind_rotate64.launches)
+    metrics.reset()
+    out = server.contains(
+        FheString(blocks_from_numpy(to_numpy(s.blocks), stepwise)),
+        FheString(blocks_from_numpy(to_numpy(pat.blocks), stepwise)))
+    torch.cuda.synchronize()
+    steps = P64.lwe_dimension * metrics.GLOBAL.pbs_calls
+    assert steps > 0
+    assert (rd.rotate_diff_decompose.launches, ep.ext_product.launches,
+            br64.blind_rotate64.launches) == (before[0] + steps,
+                                              before[1] + steps, before[2])
+    cpu_out = ck.get_server_key("cpu", with_ntt2=False).contains(s, pat)
     assert torch.equal(out.blocks.ct.cpu(), cpu_out.blocks.ct)
     assert ck.decrypt_char(out) == 1

@@ -27,6 +27,9 @@ MODULES = [
     "fhestring_tpu_torch.crypto.kernels.cuda_build",
     "fhestring_tpu_torch.crypto.kernels.blind_rotate32",
     "fhestring_tpu_torch.crypto.kernels.blind_rotate64",
+    "fhestring_tpu_torch.crypto.kernels.rotate_decompose",
+    "fhestring_tpu_torch.crypto.kernels.ext_product",
+    "fhestring_tpu_torch.crypto.kernels.ntt_ext",
     "fhestring_tpu_torch.crypto.pbs",
     "fhestring_tpu_torch.metrics",
     "fhestring_tpu_torch.shortint",
