@@ -12,15 +12,19 @@ The turbo set PARAM_MESSAGE_2_CARRY_2_KS_PBS_32 (n=742, N=2048, k=1,
 gadget 2^8 x 3; kernel blind_rotate32):
 
 3. turbo keygen (native C++) and key packing onto the card;
-4. kernel against its plain PyTorch version at B=8 on the turbo key,
-   bit-exact, both timed;
+4. every body of the kernel (1 block per item, and clusters of 2 and 4
+   blocks per item) against one run of its plain PyTorch version at B=8 on
+   the turbo key, bit-exact, each timed; then a sweep over the batches of
+   ROTATION_SWEEP_B, either side of each switch of the wrapper's pick:
+   every body timed and bit-identical to the others, to the plain version
+   up to B=33, and the picked body no slower than the one-block body;
 5. pbs_batch of B=256 messages through a known LUT: every output decrypts
    to table[m];
 6. requests "hello world" x "ello" through contains, contains_clear,
    to_upper, len, eq and find: ClientKey -> ServerKey -> decrypt equals
    Python's str, PBS counts equal benchmarks/methods_turbo_r5c.jsonl, and
    the kernel's launches (reset just before this phase) equal the PBS
-   batches;
+   batches; each request's wall time and how many batches ran each body;
 7. throughput: PBS/s of pbs_batch at B=2048, and kernel against plain
    version at the largest B whose plain run is predicted to take at most
    PLAIN_SECONDS.
@@ -29,13 +33,15 @@ The 64-bit set PARAM_PROD (n=742, N=2048, k=1, gadget 2^23 x 1, ks 2^3 x
 5; kernel blind_rotate64, which the served path runs rounded + approx):
 
 8. keygen (native C++) and key packing onto the card;
-9. kernel against its plain version at B=8 on the prod key, bit-exact in
-   the production mode (rounded + approx) and in the exact mode, timed;
+9. as phase 4 on the prod key: every body bit-exact at B=8 in the
+   production mode (rounded + approx) and in the exact mode, timed, and
+   the sweep in the production mode;
 10. pbs_batch of B=256 in the production mode: every output decrypts to
     table[m];
 11. the same six requests: outputs equal Python's str, PBS (items,
     batches) equal PROD_COUNTS, and blind_rotate64's launches (reset just
-    before this phase) equal the PBS batches;
+    before this phase) equal the PBS batches; wall times and bodies as in
+    phase 6;
 12. throughput as in phase 7, in the production mode.
 
 The step-wise 64-bit route at PARAM_PROD (one launch of rotate_decompose,
@@ -54,7 +60,10 @@ the phase-8 keys and on a server packed with ``with_ntt2=False``:
     and K3 launch n times per PBS batch and K2 never;
 16. PBS/s of pbs_batch through both routes at B=STEPWISE_B.
 
-Then one JSON line describing the five kernels, and last the line
+Then one JSON line describing the five kernels, each with its time beside
+its bound: the least time the card could take, the larger of its bytes over
+the memory rate and its integer instructions over the int32 rate (no single
+PyTorch call computes any of them, so ``library_ms`` is null).  Last the line
 ``{"ok": true, "device": {...}}``.  Any failed phase raises and exits
 non-zero.  Usage (from the repository root):
 
@@ -84,6 +93,20 @@ STEPWISE_B = 2048  # batch of the step-wise routes' throughput (phase 16)
 # items_per_block picks 1, 1, 1, 4 and 4 items per block, either side of
 # its switch, and the 4-item body's last block is partly filled.
 SWEEP_B = (1, 8, 32, 33, 99)
+# Batches of the whole-rotation kernels' sweep (phases 4 and 9): either side
+# of each switch of the pick at N=2048 on an H100 (132 SMs; 66 clusters of
+# 2 and 30 of 4 run at once), and 5, the usual batch of Eq.
+ROTATION_SWEEP_B = (1, 5, 30, 31, 33, 66, 67, 90, 91, 132, 133, 150, 151,
+                    198, 199)
+PLAIN_SWEEP_B = (1, 5, 33)  # of those, the batches the plain version runs
+PICK_SPREAD = 1.006  # run-to-run spread of a kernel time (PERF.md)
+# What bounds a kernel on an H100: int32 instructions a second (64 lanes an
+# SM at 1.98 GHz; a multiply-add is one) and bytes a second of HBM3.
+INT32_LANES, CLOCK_HZ, MEMORY_RATE = 64, 1.98e9, 3.35e12
+# The least int32 instructions of a modular butterfly (a Shoup product,
+# three, and two lazy adds: what the SASS has), of a multiply-add of the
+# pointwise products, and of one coefficient's rotate, difference and digits
+BUTTERFLY_OPS, PRODUCT_OPS, DIGIT_OPS = 5, 1, 20
 
 
 def fail(msg: str):
@@ -106,6 +129,103 @@ def cuda_ms(fn, repeat: int = 1):
 def max_abs_err(got, want) -> int:
     """Largest |difference| of two int tensors (0 when bit-identical)."""
     return int((got.long() - want.long()).abs().max())
+
+
+def bound(instructions, nbytes):
+    """(bound_ms, bound_by): the least time the card could take for that
+    many int32 instructions and bytes."""
+    import torch
+
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    ops_ms = instructions / (sms * INT32_LANES * CLOCK_HZ) * 1e3
+    bytes_ms = nbytes / MEMORY_RATE * 1e3
+    return (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms, "bytes")
+
+
+def ntt_instructions(n, transforms, products):
+    """int32 instructions of one item's external product by the two-prime
+    NTT: `transforms` radix-2 transforms of length n and `products` modular
+    multiply-adds per coefficient, both counted over the two primes."""
+    butterflies = transforms * (n // 2) * (n.bit_length() - 1)
+    return BUTTERFLY_OPS * butterflies + PRODUCT_OPS * products * n
+
+
+def tensor_bytes(*tensors):
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def rotation_bodies(kernel, plain, acc, amt, khat, phase, label, **mode):
+    """Every body of a whole-rotation kernel against one run of the plain
+    version, bit-exact, each timed (mean of 3 launches after a warm-up).
+    Returns (ms of the picked body, plain ms, max |diff|)."""
+    import torch
+
+    plain_ms, want = cuda_ms(lambda: plain(acc, amt, khat, **mode))
+    times, worst = {}, 0
+    for c in (None, *kernel.bodies):
+        before = dict(kernel.bodies)
+        kernel(acc, amt, khat, cluster=c, **mode)  # warm-up
+        ms, got = cuda_ms(lambda: kernel(acc, amt, khat, cluster=c, **mode),
+                          repeat=3)
+        ran = [b for b in kernel.bodies if kernel.bodies[b] != before[b]]
+        if len(ran) != 1 or (c is not None and ran != [c]):
+            fail(f"{kernel.__name__}(cluster={c}) ran the bodies {ran}")
+        err = max_abs_err(got, want)
+        worst = max(worst, err)
+        if err or not torch.equal(got, want):
+            fail(f"{kernel.__name__}<{ran[0]}> ({label}) differs from the "
+                 f"plain version: max |diff| {err}")
+        times[ran[0] if c is None else c] = ms
+        if c is None:
+            picked, picked_ms = ran[0], ms
+    B, n = amt.shape
+    print(f"phase {phase} kernel vs plain ({label}): B={B} n={n} "
+          f"N={acc.shape[2]} every body bit-exact; " + ", ".join(
+              f"<{c}> {ms:.3f} ms" for c, ms in times.items())
+          + f"; picked <{picked}> {picked_ms:.3f} ms; plain {plain_ms:.1f} ms "
+          f"({plain_ms / picked_ms:.1f}x)")
+    return picked_ms, plain_ms, worst
+
+
+def rotation_sweep(kernel, plain, make_acc, khat, phase, label, **mode):
+    """Every body at each B of ROTATION_SWEEP_B (the faster of two
+    launches): all bodies bit-identical, equal to the plain version at the
+    B of PLAIN_SWEEP_B, and the picked body no slower than the one-block
+    body.  Prints ms per body per B."""
+    import torch
+
+    dev = khat.device
+    n, N = khat.shape[0], khat.shape[-1]
+    gen = torch.Generator().manual_seed(phase)
+    rows = []
+    for b in ROTATION_SWEEP_B:
+        acc = make_acc(gen, b).to(dev)
+        amt = torch.randint(0, 2 * N, (b, n), dtype=torch.int32,
+                            generator=gen).to(dev)
+        before = dict(kernel.bodies)
+        want = kernel(acc, amt, khat, **mode)
+        picked, = [c for c in kernel.bodies if kernel.bodies[c] != before[c]]
+        if b in PLAIN_SWEEP_B and not torch.equal(
+                want, plain(acc, amt, khat, **mode)):
+            fail(f"{kernel.__name__}<{picked}> ({label}) differs from the "
+                 f"plain version at B={b}")
+        times = {}
+        for c in kernel.bodies:
+            runs = [cuda_ms(lambda: kernel(acc, amt, khat, cluster=c, **mode))
+                    for _ in range(2)]
+            if not all(torch.equal(got, want) for _, got in runs):
+                fail(f"{kernel.__name__}<{c}> ({label}) differs from "
+                     f"<{picked}> at B={b}")
+            times[c] = min(ms for ms, _ in runs)
+        if times[picked] > PICK_SPREAD * times[1]:
+            fail(f"{kernel.__name__} ({label}) at B={b}: the picked <{picked}> "
+                 f"took {times[picked]:.3f} ms, <1> {times[1]:.3f} ms")
+        rows.append(f"B={b} " + " ".join(f"<{c}> {ms:.2f}"
+                                         for c, ms in times.items())
+                    + f" picked <{picked}>")
+    print(f"phase {phase} sweep ({label}): ms per body, all bodies "
+          f"bit-identical, plain version at B={PLAIN_SWEEP_B}; "
+          + "; ".join(rows))
 
 
 def make_keys(P, dev, phase):
@@ -191,6 +311,8 @@ def requests(client, server, counters, table_counts, phase):
     torch.cuda.synchronize()
     for kernel, _ in counters:
         kernel.launches = 0
+        if hasattr(kernel, "bodies"):
+            kernel.bodies = dict.fromkeys(kernel.bodies, 0)
     rows = []
     for method, (call, expected) in calls.items():
         metrics.reset()
@@ -217,7 +339,10 @@ def requests(client, server, counters, table_counts, phase):
         f"{m}={g!r} pbs={c[0]} batches={c[1]} {dt * 1e3:.0f} ms"
         for m, g, c, dt in rows) + "; launches " + ", ".join(
             f"{kernel.__name__} {count}"
-            for (kernel, _), count in zip(counters, launches)))
+            + ("".join(f" <{c}> x{k}" for c, k in kernel.bodies.items())
+               if hasattr(kernel, "bodies") else "")
+            for (kernel, _), count in zip(counters, launches))
+          + f"; the six together {sum(r[3] for r in rows) * 1e3:.0f} ms")
     return launches
 
 
@@ -496,15 +621,18 @@ def main() -> int:
     amt = torch.randint(0, 2 * N, (B4, n), dtype=torch.int32,
                         generator=gen).to(dev)
     khat = dkeys.bsk_ntt32
-    br.blind_rotate32(acc, amt, khat)  # warm-up
-    ms32, got = cuda_ms(lambda: br.blind_rotate32(acc, amt, khat), repeat=3)
-    plain_ms32, want = cuda_ms(lambda: br.blind_rotate32_plain(acc, amt, khat))
-    err32 = max_abs_err(got.long() & 0xFFFFFFFF, want.long() & 0xFFFFFFFF)
-    if err32:
-        fail(f"kernel differs from plain version: max |diff| {err32}")
-    print(f"phase 4 kernel vs plain: B={B4} n={n} N={N} bit-exact; kernel "
-          f"{ms32:.3f} ms, plain {plain_ms32:.1f} ms "
-          f"({plain_ms32 / ms32:.1f}x)")
+    ms32, plain_ms32, err32 = rotation_bodies(
+        br.blind_rotate32, br.blind_rotate32_plain, acc, amt, khat, 4,
+        "turbo")
+
+    def acc32(g, b):
+        return torch.randint(-2**31, 2**31, (b, 2, N), dtype=torch.int32,
+                             generator=g)
+
+    rotation_sweep(br.blind_rotate32, br.blind_rotate32_plain, acc32, khat, 4,
+                   "turbo")
+    bound32 = bound(B4 * n * ntt_instructions(N, 28, 2 * 48),
+                    tensor_bytes(acc, acc, amt, khat))
 
     bank = pbs_known_lut(client, dkeys, 5)
     with open(os.path.join(ROOT, "benchmarks", "methods_turbo_r5c.jsonl")) as f:
@@ -513,10 +641,7 @@ def main() -> int:
     launches32, = requests(client, server, [(br.blind_rotate32, 1)],
                            turbo_counts, 6)
     throughput(client, dkeys, bank, br.blind_rotate32,
-               br.blind_rotate32_plain,
-               lambda g, b: torch.randint(-2**31, 2**31, (b, 2, N),
-                                          dtype=torch.int32, generator=g),
-               khat, 7)
+               br.blind_rotate32_plain, acc32, khat, 7)
     del client, server, dkeys, khat, bank
     torch.cuda.empty_cache()
 
@@ -533,32 +658,27 @@ def main() -> int:
     amt = torch.randint(0, 2 * N, (B4, n), dtype=torch.int32,
                         generator=gen).to(dev)
     khat = dkeys.bsk_ntt64
-    line = []
-    for label, mode in (("production", prod), ("exact", {})):
-        br64.blind_rotate64(acc, amt, khat, **mode)  # warm-up
-        ms, got = cuda_ms(lambda: br64.blind_rotate64(acc, amt, khat, **mode),
-                          repeat=3)
-        plain_ms, want = cuda_ms(
-            lambda: br64.blind_rotate64_plain(acc, amt, khat, **mode))
-        err = max_abs_err(got, want)
-        if err:
-            fail(f"blind_rotate64 ({label}) differs from plain version: "
-                 f"max |diff| {err}")
-        line.append(f"{label} kernel {ms:.3f} ms, plain {plain_ms:.1f} ms "
-                    f"({plain_ms / ms:.1f}x)")
-        if label == "production":
-            ms64, plain_ms64, err64 = ms, plain_ms, err
-    print(f"phase 9 kernel vs plain: B={B4} n={n} N={N} bit-exact in both "
-          f"modes; " + "; ".join(line))
+    ms64, plain_ms64, err64 = rotation_bodies(
+        br64.blind_rotate64, br64.blind_rotate64_plain, acc, amt, khat, 9,
+        "production", **prod)
+    rotation_bodies(br64.blind_rotate64, br64.blind_rotate64_plain, acc, amt,
+                    khat, 9, "exact")
+
+    def acc64(g, b):
+        return torch.randint(-2**63, 2**63 - 1, (b, 2, N), dtype=torch.int64,
+                             generator=g)
+
+    rotation_sweep(br64.blind_rotate64, br64.blind_rotate64_plain, acc64,
+                   khat, 9, "production", **prod)
+    # production mode: 32 transforms, 15 (la, lb) pairs x 4 (r, col) products
+    bound64 = bound(B4 * n * ntt_instructions(N, 32, 2 * 60),
+                    tensor_bytes(acc, acc, amt, khat))
 
     bank = pbs_known_lut(client, dkeys, 10, **prod)
     launches64, = requests(client, server, [(br64.blind_rotate64, 1)],
                            PROD_COUNTS, 11)
     throughput(client, dkeys, bank, br64.blind_rotate64,
-               br64.blind_rotate64_plain,
-               lambda g, b: torch.randint(-2**63, 2**63 - 1, (b, 2, N),
-                                          dtype=torch.int64, generator=g),
-               khat, 12, **prod)
+               br64.blind_rotate64_plain, acc64, khat, 12, **prod)
 
     # -- PARAM_PROD, the step-wise route: K5, then K3 or K4, per step ------
     step = stepwise_kernels(dkeys, 13)
@@ -573,25 +693,36 @@ def main() -> int:
         PROD_COUNTS, 15)
     stepwise_throughput(client, dkeys, bank, 16)
 
-    def stepwise_row(name, line, launches):
-        err, ms, plain_ms = step[name]
+    # One step at the batch of phase 13: K3 and K4 compute the same function
+    # (the exact mode's 44 transforms, 21 (la, lb) pairs x 4 (r, col)
+    # products), so K3's bound is K4's operations over its own bytes.
+    Bs = 8
+    digits, ext = 3 * Bs * 2 * N, Bs * 2 * N * 8
+    product_ops = Bs * ntt_instructions(N, 44, 2 * 84)
+    step_bound = {
+        "rotate_decompose": bound(Bs * 2 * N * DIGIT_OPS,
+                                  ext + 4 * Bs + digits),
+        "ext_product": bound(product_ops, digits + 2 * 2 * 8 * N + ext),
+        "ntt_ext": bound(product_ops, digits + 2 * 2 * 2 * 16 * N * 2 + ext)}
+
+    def row(name, replaces, launches, err, ms, plain_ms, bound_):
         return {"name": name, "route": "cuda",
                 "source": f"fhestring_tpu_torch/csrc/{name}.cu",
-                "replaces": f"fhestring_tpu/crypto/kernels/{name}.py:{line}",
+                "replaces": f"fhestring_tpu/crypto/kernels/{replaces}",
                 "launches": launches, "max_abs_err": err,
-                "ms": round(ms, 4), "plain_ms": round(plain_ms, 4)}
+                "ms": round(ms, 4), "plain_ms": round(plain_ms, 4),
+                "bound_ms": round(bound_[0], 6), "bound_by": bound_[1],
+                "library_ms": None}
+
+    def stepwise_row(name, line, launches):
+        return row(name, f"{name}.py:{line}", launches, *step[name],
+                   step_bound[name])
 
     print(json.dumps({"kernels": [
-        {"name": "blind_rotate32", "route": "cuda",
-         "source": "fhestring_tpu_torch/csrc/blind_rotate32.cu",
-         "replaces": "fhestring_tpu/crypto/kernels/blind_rotate_fused32.py:399",
-         "launches": launches32, "max_abs_err": err32,
-         "ms": round(ms32, 4), "plain_ms": round(plain_ms32, 4)},
-        {"name": "blind_rotate64", "route": "cuda",
-         "source": "fhestring_tpu_torch/csrc/blind_rotate64.cu",
-         "replaces": "fhestring_tpu/crypto/kernels/blind_rotate_fused.py:348",
-         "launches": launches64, "max_abs_err": err64,
-         "ms": round(ms64, 4), "plain_ms": round(plain_ms64, 4)},
+        row("blind_rotate32", "blind_rotate_fused32.py:399", launches32,
+            err32, ms32, plain_ms32, bound32),
+        row("blind_rotate64", "blind_rotate_fused.py:348", launches64, err64,
+            ms64, plain_ms64, bound64),
         stepwise_row("rotate_decompose", 106, k5_launches),
         stepwise_row("ext_product", 186, k3_launches),
         stepwise_row("ntt_ext", 408, k4_launches)]}))

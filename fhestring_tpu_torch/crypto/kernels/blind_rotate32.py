@@ -22,17 +22,20 @@ Exactness.  Each W_s is an integer with |W_s| <= R * N * 128 * 128
 (R = 6, N = 2048: 2.01e8).  It is computed by a negacyclic NTT mod
 40961 and mod 61441 and rebuilt by a centered two-prime CRT, which is exact
 for |W_s| < M/2 = 1.26e9 (M = 40961 * 61441).  All residue products are
-below 2**32, so the kernel uses 32-bit integer arithmetic only, and the
-plain version int64.
+below 2**32, so the kernel's transforms use 32-bit words (a plane's 6
+products are summed in 64 bits), and the plain version int64.
 
-The kernel (``csrc/blind_rotate32.cu``) runs one block per batch item and
-keeps the accumulator in shared memory for all n steps.  What bounds it on
-an H100: the per-step NTT butterflies (28 transforms of length N per step,
-modular arithmetic on the CUDA cores) and the bootstrap key, which every
-block re-reads from L2/device memory on every step (393 KB per step at the
-turbo set); blocks that run the same step at the same time share it
-through L2.  Tensor-core transforms and key reuse across items in a block
-are left for later work.
+The kernel (``csrc/blind_rotate32.cu``) keeps an item's accumulator in
+shared memory for all n steps.  What bounds it on an H100 is integer
+instructions on the CUDA cores (28 transforms of length N and 196,608
+multiply-adds a step; the key, 393 KB a step, comes through L2 and is far
+from binding), and one item on one SM reaches 1/132 of the card's rate.
+So the kernel has three bodies with the same bits (``cluster.py``): one
+block per item, and a thread-block cluster of 2 or 4 blocks per item that
+splits the step by prime, or by prime and output row, and exchanges the
+parts through distributed shared memory.  ``cluster_size`` picks the body
+from the batch and the card; ``cluster=`` forces one.  The source says what
+share of the bound each reaches.
 
 On a CPU tensor the wrapper runs the plain version; on a CUDA tensor it
 launches the kernel or raises.
@@ -41,21 +44,29 @@ launches the kernel or raises.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
 from .. import ntt
 from ..keys import KEY_PLANES
 from . import cuda_build
+from . import cluster as _cluster
+from .cluster import CLUSTERS, WaveCost, check_cluster
 
 BASE_LOG = 8
 LEVELS = 3
 GLWE_ROWS = 2  # k + 1
+# One wave of each body relative to the one-block body's, measured on an
+# H100 at N = 2048 (PERF.md); every mode of the kernel is within 5% of it.
+WAVE_COST = WaveCost(one_block=(1.0, 1.76), cluster={2: 0.539, 4: 0.302})
 
 _VP = ctypes.c_void_p
-_FUNCTIONS = {"fhe_blind_rotate32": (
-    [_VP, _VP, _VP, _VP, _VP, ctypes.c_int, ctypes.c_int, ctypes.c_int, _VP],
-    ctypes.c_int)}
+_INT = ctypes.c_int
+_FUNCTIONS = {
+    "fhe_blind_rotate32": (
+        [_VP, _VP, _VP, _VP, _VP, _INT, _INT, _INT, _INT, _VP], _INT),
+    "fhe_blind_rotate32_max_clusters": ([_INT, _INT], _INT)}
 
 
 def max_plane_value(num_r: int, n: int) -> int:
@@ -144,36 +155,69 @@ def blind_rotate32_plain(acc_hi: torch.Tensor, amounts: torch.Tensor,
     return torch.where(acc >= 1 << 31, acc - (1 << 32), acc).to(torch.int32)
 
 
+def cluster_size(batch: int, sms: int, n: int, occupancy=None) -> int:
+    """Blocks per item this kernel runs a batch on: ``cluster.cluster_size``
+    with this kernel's measured wave costs."""
+    return _cluster.cluster_size(batch, sms, n, WAVE_COST, occupancy)
+
+
+@functools.lru_cache(maxsize=None)
+def max_active_clusters(device_index: int, cluster: int, n: int) -> int:
+    """How many clusters of ``cluster`` blocks the device runs at once at
+    polynomial size n (``cudaOccupancyMaxActiveClusters``); raises if the
+    device refuses the body."""
+    lib = cuda_build.load("blind_rotate32", _FUNCTIONS)
+    with torch.cuda.device(device_index):
+        count = lib.fhe_blind_rotate32_max_clusters(n, cluster)
+    cuda_build.check(lib, max(-count, 0), "blind_rotate32 cluster occupancy")
+    return count
+
+
 def blind_rotate32(acc_hi: torch.Tensor, amounts: torch.Tensor,
-                   khat: torch.Tensor) -> torch.Tensor:
+                   khat: torch.Tensor, *,
+                   cluster: int | None = None) -> torch.Tensor:
     """Run the whole 32-bit blind rotation.
 
     acc_hi: int32 [B, k+1, N] initial accumulator (u32 payloads);
     amounts: int32 [B, n] per-step rotation amounts in [0, 2N);
-    khat: int16 [n, 2, R, (k+1)*4, N] (keys.pack_bsk_ntt).
+    khat: int16 [n, 2, R, (k+1)*4, N] (keys.pack_bsk_ntt);
+    cluster: the kernel body, blocks per item, one of CLUSTERS (default:
+    ``pick_cluster``); the result does not depend on it.
     Returns int32 [B, k+1, N]: the final accumulator payloads.
 
     CPU tensors run ``blind_rotate32_plain``; CUDA tensors launch the
     kernel (built at first use) and count the launch in
-    ``blind_rotate32.launches``.
+    ``blind_rotate32.launches`` and, by body, in ``blind_rotate32.bodies``.
     """
     _check(acc_hi, amounts, khat)
+    check_cluster(cluster)
     if acc_hi.device.type == "cpu":
         return blind_rotate32_plain(acc_hi, amounts, khat)
     if acc_hi.device.type != "cuda":
         raise ValueError(f"no blind-rotation kernel for {acc_hi.device}")
     lib = cuda_build.load("blind_rotate32", _FUNCTIONS)
     B, _, N = acc_hi.shape
-    tw = ntt.device_twiddles(N, str(acc_hi.device), torch.int32)
+    if cluster is None:
+        cluster = pick_cluster(B, N, acc_hi.device.index)
+    tw = ntt.kernel_twiddles(N, str(acc_hi.device))
     out = torch.empty_like(acc_hi)
     with torch.cuda.device(acc_hi.device):
         err = lib.fhe_blind_rotate32(
             acc_hi.data_ptr(), out.data_ptr(), amounts.data_ptr(),
-            khat.data_ptr(), tw.data_ptr(), B, amounts.shape[1], N,
+            khat.data_ptr(), tw.data_ptr(), B, amounts.shape[1], N, cluster,
             torch.cuda.current_stream().cuda_stream)
-    cuda_build.check(lib, err, "blind_rotate32")
+    cuda_build.check(lib, err, f"blind_rotate32<{cluster}>")
     blind_rotate32.launches += 1
+    blind_rotate32.bodies[cluster] += 1
     return out
 
 
+def pick_cluster(batch: int, n: int, device_index: int) -> int:
+    """The body ``blind_rotate32`` runs for this batch on this device."""
+    return cluster_size(
+        batch, cuda_build.sm_count(device_index), n,
+        lambda c, n_: max_active_clusters(device_index, c, n_))
+
+
 blind_rotate32.launches = 0
+blind_rotate32.bodies = dict.fromkeys(CLUSTERS, 0)

@@ -30,17 +30,23 @@ Exactness.  Each W_s is an integer with |W_s| <= 3 pairs * R * N * 128 *
 negacyclic NTT mod 40961 and mod 61441 and rebuilt by a centered two-prime
 CRT, which is exact for |W_s| < M/2 = 1.26e9 (M = 40961 * 61441); the
 TPU kernel's 3-prime grouping of planes is not needed.  All residue
-products are below 2**32, so the kernel uses 32-bit integer arithmetic for
-the transforms and uint64_t for the accumulator, and the plain version
+products are below 2**32, so the kernel's transforms use 32-bit words (a
+plane's 6 products are summed in 64 bits) and uint64_t holds the
+accumulator, and the plain version uses
 int64 (whose wraparound is pinned against numpy uint64 by the tests).
 
-The kernel (``csrc/blind_rotate64.cu``) runs one block per batch item and
-keeps the u64 accumulator in shared memory for all n steps.  What bounds it
-on an H100: the per-step NTT butterflies (per prime 6 forward and 16
-inverse transforms of length N in exact mode, 6 and 10 in approx mode, on
-the CUDA cores) and the key stream (256 KB per step, 224 KB in approx
-mode, which never reads the key's limb 0), re-read by every block from L2
-or device memory.  Shared memory sets one block per SM: see the source.
+The kernel (``csrc/blind_rotate64.cu``) keeps an item's u64 accumulator in
+shared memory for all n steps.  What bounds it on an H100 is integer
+instructions on the CUDA cores (per prime 6 forward and 16 inverse
+transforms of length N in exact mode, 6 and 10 in approx mode; the key,
+256 KB a step or 224 KB in approx mode, which never reads the key's limb 0,
+comes through L2 and is far from binding), and one item on one SM reaches
+1/132 of the card's rate.  So the kernel has three bodies with the same
+bits (``cluster.py``): one block per item, and a thread-block cluster of 2
+or 4 blocks per item that splits the step by prime, or by prime and output
+row, and exchanges the parts through distributed shared memory.
+``cluster_size`` picks the body from the batch and the card; ``cluster=``
+forces one.  The source says what share of the bound each reaches.
 
 On a CPU tensor the wrapper runs the plain version; on a CUDA tensor it
 launches the kernel or raises.
@@ -49,6 +55,7 @@ launches the kernel or raises.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -56,20 +63,28 @@ from ... import torus
 from .. import ntt
 from ..keys import KEY_PLANES64
 from . import cuda_build
+from . import cluster as _cluster
+from .cluster import CLUSTERS, WaveCost, check_cluster
 
 BASE_LOG = 23
 LEVELS = 1
 GLWE_ROWS = 2  # k + 1; with ell = 1 also the number of digit rows R
 DIGIT_LIMBS = 3  # balanced int8 limbs of a digit: (BASE_LOG + 8) // 8
 APPROX_MIN_SHIFT = 3  # approx mode drops shift planes s < 3
+# One wave of each body relative to the one-block body's, measured on an
+# H100 at N = 2048 (PERF.md); every mode of the kernel is within 5% of it.
+WAVE_COST = WaveCost(one_block=(1.0, 2.0), cluster={2: 0.560, 4: 0.323})
 
 _SHIFT = 64 - BASE_LOG
 _MASK = (1 << BASE_LOG) - 1
 _HALF = 1 << (BASE_LOG - 1)
 _VP = ctypes.c_void_p
 _INT = ctypes.c_int
-_FUNCTIONS = {"fhe_blind_rotate64": (
-    [_VP, _VP, _VP, _VP, _VP, _INT, _INT, _INT, _INT, _INT, _VP], _INT)}
+_FUNCTIONS = {
+    "fhe_blind_rotate64": (
+        [_VP, _VP, _VP, _VP, _VP, _INT, _INT, _INT, _INT, _INT, _INT, _VP],
+        _INT),
+    "fhe_blind_rotate64_max_clusters": ([_INT, _INT, _INT, _INT], _INT)}
 
 
 def max_plane_value(n: int) -> int:
@@ -192,22 +207,46 @@ def blind_rotate64_plain(acc: torch.Tensor, amounts: torch.Tensor,
     return acc
 
 
+def cluster_size(batch: int, sms: int, n: int, occupancy=None) -> int:
+    """Blocks per item this kernel runs a batch on: ``cluster.cluster_size``
+    with this kernel's measured wave costs."""
+    return _cluster.cluster_size(batch, sms, n, WAVE_COST, occupancy)
+
+
+@functools.lru_cache(maxsize=None)
+def max_active_clusters(device_index: int, cluster: int, n: int,
+                        rounded: bool, approx: bool) -> int:
+    """How many clusters of ``cluster`` blocks the device runs at once at
+    polynomial size n in this mode (``cudaOccupancyMaxActiveClusters``; the
+    modes differ in shared memory); raises if the device refuses the body."""
+    lib = cuda_build.load("blind_rotate64", _FUNCTIONS)
+    with torch.cuda.device(device_index):
+        count = lib.fhe_blind_rotate64_max_clusters(n, int(rounded),
+                                                    int(approx), cluster)
+    cuda_build.check(lib, max(-count, 0), "blind_rotate64 cluster occupancy")
+    return count
+
+
 def blind_rotate64(acc: torch.Tensor, amounts: torch.Tensor,
                    khat: torch.Tensor, *, rounded: bool = False,
-                   approx: bool = False) -> torch.Tensor:
+                   approx: bool = False,
+                   cluster: int | None = None) -> torch.Tensor:
     """Run the whole 64-bit blind rotation.
 
     acc: int64 [B, k+1, N] initial accumulator (u64 bits);
     amounts: int32 [B, n] per-step rotation amounts in [0, 2N);
     khat: int16 [n, 2, k+1, (k+1)*8, N] (keys.pack_bsk_ntt);
-    rounded, approx: the mode (module docstring).
+    rounded, approx: the mode (module docstring);
+    cluster: the kernel body, blocks per item, one of CLUSTERS (default:
+    ``pick_cluster``); the result does not depend on it.
     Returns int64 [B, k+1, N]: the final accumulator.
 
     CPU tensors run ``blind_rotate64_plain``; CUDA tensors launch the
     kernel (built at first use) and count the launch in
-    ``blind_rotate64.launches``.
+    ``blind_rotate64.launches`` and, by body, in ``blind_rotate64.bodies``.
     """
     _check(acc, amounts, khat)
+    check_cluster(cluster)
     if acc.device.type == "cpu":
         return blind_rotate64_plain(acc, amounts, khat, rounded=rounded,
                                     approx=approx)
@@ -215,17 +254,31 @@ def blind_rotate64(acc: torch.Tensor, amounts: torch.Tensor,
         raise ValueError(f"no blind-rotation kernel for {acc.device}")
     lib = cuda_build.load("blind_rotate64", _FUNCTIONS)
     B, _, N = acc.shape
-    tw = ntt.device_twiddles(N, str(acc.device), torch.int32)
+    if cluster is None:
+        cluster = pick_cluster(B, N, acc.device.index, rounded=rounded,
+                               approx=approx)
+    tw = ntt.kernel_twiddles(N, str(acc.device))
     out = torch.empty_like(acc)
     with torch.cuda.device(acc.device):
         err = lib.fhe_blind_rotate64(
             acc.data_ptr(), out.data_ptr(), amounts.data_ptr(),
             khat.data_ptr(), tw.data_ptr(), B, amounts.shape[1], N,
-            int(rounded), int(approx),
+            int(rounded), int(approx), cluster,
             torch.cuda.current_stream().cuda_stream)
-    cuda_build.check(lib, err, "blind_rotate64")
+    cuda_build.check(lib, err, f"blind_rotate64<{cluster}>")
     blind_rotate64.launches += 1
+    blind_rotate64.bodies[cluster] += 1
     return out
 
 
+def pick_cluster(batch: int, n: int, device_index: int, *,
+                 rounded: bool = False, approx: bool = False) -> int:
+    """The body ``blind_rotate64`` runs for this batch on this device."""
+    return cluster_size(
+        batch, cuda_build.sm_count(device_index), n,
+        lambda c, n_: max_active_clusters(device_index, c, n_, bool(rounded),
+                                          bool(approx)))
+
+
 blind_rotate64.launches = 0
+blind_rotate64.bodies = dict.fromkeys(CLUSTERS, 0)

@@ -12,10 +12,13 @@ there is no fallback.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
 import subprocess
+
+import torch
 
 from ...native import BUILD_DIR
 
@@ -94,3 +97,9 @@ def check(lib: ctypes.CDLL, err: int, what: str) -> None:
     if err:
         raise RuntimeError(f"{what} launch failed: "
                            + lib.fhe_cuda_error_string(err).decode())
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(device_index: int) -> int:
+    """Streaming multiprocessors of the CUDA device."""
+    return torch.cuda.get_device_properties(device_index).multi_processor_count

@@ -37,7 +37,6 @@ launches the kernel or raises.
 from __future__ import annotations
 
 import ctypes
-import functools
 
 import torch
 
@@ -69,11 +68,6 @@ def items_per_block(batch: int, n: int, sms: int) -> int:
     16%."""
     blocks = (n // TILE) * br64.GLWE_ROWS * -(-batch // ITEMS[-1])
     return ITEMS[-1] if blocks >= 2 * sms else 1
-
-
-@functools.lru_cache(maxsize=None)
-def _sm_count(device_index: int) -> int:
-    return torch.cuda.get_device_properties(device_index).multi_processor_count
 
 
 def _check(dl: torch.Tensor, key: torch.Tensor) -> None:
@@ -157,7 +151,7 @@ def ext_product(dl: torch.Tensor, key: torch.Tensor,
     _, B, _ = dl.shape
     kp1, N = key.shape[1], key.shape[-1]
     if items is None:
-        items = items_per_block(B, N, _sm_count(dl.device.index))
+        items = items_per_block(B, N, cuda_build.sm_count(dl.device.index))
     out = torch.empty((B, kp1, N), dtype=torch.int64, device=dl.device)
     with torch.cuda.device(dl.device):
         err = lib.fhe_ext_product(

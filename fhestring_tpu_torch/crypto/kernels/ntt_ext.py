@@ -101,7 +101,7 @@ def ntt_ext(dl: torch.Tensor, khat_j: torch.Tensor) -> torch.Tensor:
     lib = cuda_build.load("ntt_ext", _FUNCTIONS)
     _, B, _ = dl.shape
     kp1, N = br64.GLWE_ROWS, khat_j.shape[-1]
-    tw = ntt.device_twiddles(N, str(dl.device), torch.int32)
+    tw = ntt.kernel_twiddles(N, str(dl.device))
     out = torch.empty((B, kp1, N), dtype=torch.int64, device=dl.device)
     with torch.cuda.device(dl.device):
         err = lib.fhe_ntt_ext(

@@ -79,9 +79,22 @@ def twiddles(n: int) -> np.ndarray:
 
 
 @functools.lru_cache(maxsize=None)
-def device_twiddles(n: int, device: str, dtype=torch.int64) -> torch.Tensor:
-    """``twiddles(n)`` as a tensor on ``device`` (int32 for the kernels)."""
-    return torch.from_numpy(twiddles(n)).to(device=device, dtype=dtype)
+def device_twiddles(n: int, device: str) -> torch.Tensor:
+    """``twiddles(n)`` as an int64 tensor on ``device``, for the plain
+    versions (the kernels read ``kernel_twiddles``)."""
+    return torch.from_numpy(twiddles(n)).to(device)
+
+
+@functools.lru_cache(maxsize=None)
+def kernel_twiddles(n: int, device: str) -> torch.Tensor:
+    """The CUDA kernels' twiddle table, int32 (u32 bits) [prime, (forward,
+    inverse), n, 2]: each twiddle w of ``twiddles(n)`` with its Shoup
+    quotient floor(w * 2**32 / p), which turns a product by w mod p into
+    two multiplies and a multiply-high (``csrc/ntt64.cuh``: mul_shoup)."""
+    tw = twiddles(n)
+    p = np.array(PRIMES, np.int64).reshape(-1, 1, 1)
+    table = np.stack([tw, (tw << 32) // p], axis=-1).astype(np.uint32)
+    return torch.from_numpy(table.view(np.int32)).to(device)
 
 
 def crt_centered(res: torch.Tensor) -> torch.Tensor:

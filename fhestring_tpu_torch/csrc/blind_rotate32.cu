@@ -19,34 +19,59 @@
 // Exactness.  |W_s| <= R * N * 128 * 128 = 2.01e8 at N = 2048, below
 // M/2 = 1.26e9 with M = 40961 * 61441 = 2,516,684,801, so the centered CRT
 // returns W_s itself and its low 32 bits are exact in uint32 arithmetic.
-// Residues are < 2^16, so every product of two residues is < 2^32 and a
-// sum of R = 6 reduced products is < 2^19: 32-bit arithmetic throughout.
+// Residues are < 2^16, so every product of two residues is < 2^32: the
+// transforms work in 32-bit words (ntt64.cuh says how far they may grow),
+// and a plane's R = 6 products are summed in 64 bits and reduced once.
 //
 // Design.  The TPU kernel's sequential grid axis over the n steps is a
-// loop inside the block: one block (512 threads) per batch item keeps its
-// accumulator in shared memory for all n steps and writes it once.
-// Shared memory per block at N = 2048: accumulator 16 KB, one work buffer
-// of 8 polys (digit hats, then products) 64 KB, the prime-40961 results as
-// u16 32 KB: 112 KB, so two blocks fit on one SM.  The key hats arrive with
-// 1/N folded in, so the inverse transform needs no final scaling.
+// loop inside the kernel: an item's accumulator stays in shared memory for
+// all n steps and is written once.  Three bodies give the same bits:
 //
-// What bounds it.  The butterflies: 28 transforms of length N per step,
-// each N/2 * log2(N) modular butterflies on the CUDA cores, one
-// __syncthreads per stage.  The key: every block re-reads this step's
-// 393 KB of key hats from L2 or device memory on every step; blocks on the
-// same step share it through L2.  Tensor-core transforms, fewer
-// synchronisations (several stages per pass in registers) and key reuse
-// across several items per block are later work.
+//   1 block per item (512 threads; at N = 2048 accumulator 16 KB, one work
+//     buffer of 8 polys for the digit hats and then the products 64 KB, the
+//     prime-40961 residues as u16 32 KB: 112 KB, two blocks an SM), the
+//     primes in turn;
+//   a thread-block cluster of 2 or 4 blocks per item (rotate_cluster.cuh;
+//     1,024 threads a block), split by prime, or by prime and output row:
+//     14 or 7 of the step's 28 transforms a block, the parts exchanged
+//     through distributed shared memory; the 4-block body also holds its
+//     96 KB quarter of a step's key, copied in a step ahead (176 KB a
+//     block).
+//
+// The transforms, the CRT and the cluster bodies are shared with the 64-bit
+// kernels (ntt64.cuh, rotate_cluster.cuh).  The key hats arrive with 1/N
+// folded in, so the inverse transform needs no final scaling.
+//
+// What bounds it.  Integer instructions on the CUDA cores, not memory: a
+// step reads 393 KB of key hats (292 MB a launch, under 0.1 ms of HBM
+// time; blocks on the same step share it through L2) and does 28
+// transforms of length N, 315,392 butterflies of 5 integer instructions
+// (a Shoup product and two lazy adds), and 196,608 multiply-adds: 1.8e6
+// instructions an item-step at the least, 0.63 ms for B = 8 and 161 ms for
+// B = 2048 at an H100's 64 int32 lanes x 132 SMs x 1.98 GHz.  One item on
+// one SM can use 1/132 of that rate, and a request's batches are 5 to 40
+// items, so the clusters spread an item over 4 SMs while the batch leaves
+// them idle: at B = 8 the 4-block body reaches about 5% of the bound (the
+// one-block body 1.6%); at B = 2048 the one-block body reaches about 32%
+// of it.  The rest goes to shared memory traffic and address arithmetic (9
+// instructions a butterfly as compiled), bank conflicts in the passes of
+// distance 16 and below, and barriers; tensor-core transforms are later
+// work.
 
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "ntt64.cuh"
+#include "rotate_cluster.cuh"
+
 namespace {
 
-constexpr uint32_t kP0 = 40961;
-constexpr uint32_t kP1 = 61441;
-constexpr uint32_t kM = kP0 * kP1;     // 2,516,684,801 < 2^32
-constexpr uint32_t kInvP0 = 3;         // 40961^-1 mod 61441
+using ntt64::kM;
+using ntt64::kP0;
+using ntt64::kP1;
+using ntt64::ntt_fwd;
+using ntt64::ntt_inv;
+
 constexpr int kRows = 2;               // k + 1
 constexpr int kLevels = 3;             // gadget levels, base 2^8
 constexpr int kDigits = kRows * kLevels;   // R
@@ -54,33 +79,19 @@ constexpr int kPlanes = 4;             // byte limbs of the key payload
 constexpr int kOut = kRows * kPlanes;  // product planes per prime
 constexpr int kThreads = 512;
 
-static_assert(kInvP0 * kP0 % kP1 == 1, "CRT inverse");
 static_assert(kOut >= kDigits, "work buffer holds the digit polys");
+static_assert(kRows == ntt64::kRows && kLevels == ntt64::kLimbs,
+              "the cluster bodies split 2 rows of 3 digit polys");
 
+// Digits of diff = acc * X^a - acc of the `rows` accumulator rows at acc, as
+// residues mod P: x[(r * 3 + lev) * n + t].  Identical to
+// numpy_ref.decompose on diff << 32 (base 2^8, 3 levels, level 0 most
+// significant).
 template <uint32_t P>
-__device__ __forceinline__ uint32_t mul_mod(uint32_t a, uint32_t b) {
-  return (a * b) % P;  // a, b < P < 2^16
-}
-
-template <uint32_t P>
-__device__ __forceinline__ uint32_t add_mod(uint32_t a, uint32_t b) {
-  const uint32_t s = a + b;
-  return s >= P ? s - P : s;
-}
-
-template <uint32_t P>
-__device__ __forceinline__ uint32_t sub_mod(uint32_t a, uint32_t b) {
-  return a >= b ? a - b : a + P - b;
-}
-
-// Digits of diff = acc * X^a - acc as residues mod P: x[r*3 + lev][t].
-// Identical to numpy_ref.decompose on diff << 32 (base 2^8, 3 levels,
-// level 0 most significant).
-template <uint32_t P>
-__device__ void load_digits(uint32_t* x, const uint32_t* acc, int a, int n,
-                            int log_n) {
+__device__ void load_digits(uint32_t* x, const uint32_t* acc, int rows, int a,
+                            int n, int log_n) {
   constexpr int shift = 32 - 8 * kLevels;
-  for (int idx = threadIdx.x; idx < kRows * n; idx += blockDim.x) {
+  for (int idx = threadIdx.x; idx < rows * n; idx += blockDim.x) {
     const int r = idx >> log_n;
     const int t = idx & (n - 1);
     const int src = (t - a) & (2 * n - 1);
@@ -103,115 +114,76 @@ __device__ void load_digits(uint32_t* x, const uint32_t* acc, int a, int n,
   __syncthreads();
 }
 
-// Forward negacyclic NTT of npoly polys in place: Cooley-Tukey, natural
-// order in, bit-reversed out; psi_rev[k] = psi^bitrev(k).
-template <uint32_t P>
-__device__ void ntt_fwd(uint32_t* x, int npoly, int n, int log_n,
-                        const uint32_t* __restrict__ psi_rev) {
-  const int half = n >> 1;
-  const int total = npoly * half;
-  for (int m = 1, log_t = log_n - 1; m < n; m <<= 1, --log_t) {
-    const int t = 1 << log_t;
-    for (int idx = threadIdx.x; idx < total; idx += blockDim.x) {
-      const int k = idx & (half - 1);
-      const int i = k >> log_t;
-      uint32_t* a = x + (idx >> (log_n - 1)) * n;
-      const int j0 = (i << (log_t + 1)) + (k & (t - 1));
-      const uint32_t u = a[j0];
-      const uint32_t v = mul_mod<P>(a[j0 + t], __ldg(psi_rev + m + i));
-      a[j0] = add_mod<P>(u, v);
-      a[j0 + t] = sub_mod<P>(u, v);
-    }
-    __syncthreads();
-  }
-}
-
-// Inverse: Gentleman-Sande, bit-reversed in, natural out,
-// psi_inv_rev[k] = psi^-bitrev(k); no 1/N scaling (the key carries it).
-template <uint32_t P>
-__device__ void ntt_inv(uint32_t* x, int npoly, int n, int log_n,
-                        const uint32_t* __restrict__ psi_inv_rev) {
-  const int half = n >> 1;
-  const int total = npoly * half;
-  for (int h = half, log_t = 0; h >= 1; h >>= 1, ++log_t) {
-    const int t = 1 << log_t;
-    for (int idx = threadIdx.x; idx < total; idx += blockDim.x) {
-      const int k = idx & (half - 1);
-      const int i = k >> log_t;
-      uint32_t* a = x + (idx >> (log_n - 1)) * n;
-      const int j0 = (i << (log_t + 1)) + (k & (t - 1));
-      const uint32_t u = a[j0];
-      const uint32_t v = a[j0 + t];
-      a[j0] = add_mod<P>(u, v);
-      a[j0 + t] = mul_mod<P>(sub_mod<P>(u, v), __ldg(psi_inv_rev + h + i));
-    }
-    __syncthreads();
-  }
-}
-
-// x[o][h] = sum_i x[i][h] * key[i][o][h] mod P for the 8 product planes o,
-// in place: each column h is read and written by one thread only.
-// key: this step's and this prime's hats, u16 [R][8][n].
-template <uint32_t P>
-__device__ void pointwise(uint32_t* x, const uint16_t* __restrict__ key,
-                          int n) {
+// x[(col - col0) * 4 + s][h] = sum_i d_i[h] * key[i][col * 4 + s][h] mod P
+// for the 4 product planes s of each of the kCols output rows from col0,
+// with d0 and d1 the transformed digit polys [3][n] of accumulator rows 0
+// and 1.  d0 and d1 may lie inside x: each column h is read, then written,
+// by one thread only.  key: this step's and this prime's hats, u16
+// [R][8][n] in device memory, or (kStaged) a copy of the kCols rows' polys
+// in shared memory, u16 [R][kCols * 4][n] with col0 = 0.
+template <uint32_t P, int kCols, bool kStaged = false>
+__device__ void digit_products(uint32_t* x, const uint32_t* d0,
+                               const uint32_t* d1,
+                               const uint16_t* __restrict__ key, int col0,
+                               int n) {
+  constexpr int kRowPolys = kStaged ? kCols * kPlanes : kOut;
   for (int h = threadIdx.x; h < n; h += blockDim.x) {
     uint32_t d[kDigits];
 #pragma unroll
-    for (int i = 0; i < kDigits; ++i) d[i] = x[i * n + h];
+    for (int lev = 0; lev < kLevels; ++lev) {
+      d[lev] = d0[lev * n + h];
+      d[kLevels + lev] = d1[lev * n + h];
+    }
 #pragma unroll
-    for (int o = 0; o < kOut; ++o) {
-      uint32_t s = 0;
+    for (int o = 0; o < kCols * kPlanes; ++o) {
+      uint64_t s = 0;  // 6 products < 2^32
 #pragma unroll
-      for (int i = 0; i < kDigits; ++i)
-        s += mul_mod<P>(d[i], __ldg(key + (i * kOut + o) * n + h));
-      x[o * n + h] = s % P;
+      for (int i = 0; i < kDigits; ++i) {
+        const uint16_t* kp =
+            key + (i * kRowPolys + col0 * kPlanes + o) * n + h;
+        s += static_cast<uint64_t>(d[i]) * (kStaged ? *kp : __ldg(kp));
+      }
+      x[o * n + h] = ntt64::reduce_sum<P>(s);
     }
   }
   __syncthreads();
 }
 
-// acc[r][t] += sum_s W_s << 8s, W_s rebuilt from its residues mod P0 (res0)
-// and mod P1 (x) by a centered Garner CRT.
-__device__ void crt_accumulate(uint32_t* acc, const uint16_t* res0,
-                               const uint32_t* x, int n, int log_n) {
-  for (int idx = threadIdx.x; idx < kRows * n; idx += blockDim.x) {
-    const int r = idx >> log_n;
-    const int t = idx & (n - 1);
-    uint32_t sum = 0;
+// sum_s W_s << 8s (mod 2^32) of local output row r, coefficient t: each W_s
+// rebuilt from its residues mod P0 (res0) and mod P1 (res1), u16 or u32
+// polys [rows * 4][n], by a centered Garner CRT.
+template <class T0, class T1>
+__device__ __forceinline__ uint32_t plane_sum(const T0* res0, const T1* res1,
+                                              int r, int t, int n) {
+  uint32_t sum = 0;
 #pragma unroll
-    for (int s = 0; s < kPlanes; ++s) {
-      const int o = (r * kPlanes + s) * n + t;
-      const uint32_t r0 = res0[o];  // < P0 < P1
-      const uint32_t r1 = x[o];
-      const uint32_t d = r1 >= r0 ? r1 - r0 : r1 + kP1 - r0;
-      const uint32_t x2 = (d * kInvP0) % kP1;
-      uint32_t v = r0 + kP0 * x2;  // the residue pair's value in [0, M)
-      if (v > kM / 2) v -= kM;     // centered: wraps to W_s mod 2^32
-      sum += v << (8 * s);
-    }
-    acc[idx] += sum;
+  for (int s = 0; s < kPlanes; ++s) {
+    const int o = (r * kPlanes + s) * n + t;
+    uint32_t v = ntt64::crt_value(res0[o], res1[o]);
+    if (v > kM / 2) v -= kM;  // centered: wraps to W_s mod 2^32
+    sum += v << (8 * s);
   }
-  __syncthreads();
+  return sum;
 }
 
 template <uint32_t P>
 __device__ void external_product_mod(uint32_t* x, const uint32_t* acc, int a,
                                      const uint16_t* __restrict__ key,
-                                     const uint32_t* __restrict__ tw, int n,
+                                     const uint2* __restrict__ tw, int n,
                                      int log_n) {
-  load_digits<P>(x, acc, a, n, log_n);
-  ntt_fwd<P>(x, kDigits, n, log_n, tw);
-  pointwise<P>(x, key, n);
-  ntt_inv<P>(x, kOut, n, log_n, tw + n);
+  load_digits<P>(x, acc, kRows, a, n, log_n);
+  ntt_fwd<P>(x, kDigits, log_n, tw);
+  digit_products<P, kRows>(x, x, x + kLevels * n, key, 0, n);
+  ntt_inv<P>(x, kOut, log_n, tw + n);
 }
 
+// The one-block body: an item's whole step on one SM, the primes in turn.
 __global__ void __launch_bounds__(kThreads, 2)
 blind_rotate32_kernel(const int32_t* __restrict__ acc_in,
                       int32_t* __restrict__ acc_out,
                       const int32_t* __restrict__ amounts,
                       const uint16_t* __restrict__ khat,
-                      const uint32_t* __restrict__ tw, int n_steps, int n,
+                      const uint2* __restrict__ tw, int n_steps, int n,
                       int log_n) {
   extern __shared__ uint32_t smem[];
   uint32_t* acc = smem;                                  // [kRows][n]
@@ -229,12 +201,12 @@ blind_rotate32_kernel(const int32_t* __restrict__ acc_in,
     const int a = amounts[item * n_steps + j];
     const uint16_t* key = khat + 2 * prime_stride * j;
     external_product_mod<kP0>(x, acc, a, key, tw, n, log_n);
-    for (int idx = threadIdx.x; idx < kOut * n; idx += blockDim.x)
-      res0[idx] = static_cast<uint16_t>(x[idx]);
-    __syncthreads();
+    ntt64::save_residues(res0, x, kOut * n);
     external_product_mod<kP1>(x, acc, a, key + prime_stride, tw + 2 * n, n,
                               log_n);
-    crt_accumulate(acc, res0, x, n, log_n);
+    for (int idx = threadIdx.x; idx < kRows * n; idx += blockDim.x)
+      acc[idx] += plane_sum(res0, x, idx >> log_n, idx & (n - 1), n);
+    __syncthreads();
   }
 
   int32_t* out = acc_out + item * kRows * n;
@@ -242,19 +214,73 @@ blind_rotate32_kernel(const int32_t* __restrict__ acc_in,
     out[idx] = static_cast<int32_t>(acc[idx]);
 }
 
+// What the cluster bodies (rotate_cluster.cuh) take from this kernel.
+struct Spec {
+  using Acc = uint32_t;
+  static constexpr int kCount = kPlanes;
+  static constexpr int kKeyPolys = kDigits * kOut;
+
+  template <uint32_t P>
+  static __device__ void digits(uint32_t* x, const uint32_t* acc, int rows,
+                                int a, int n, int log_n) {
+    load_digits<P>(x, acc, rows, a, n, log_n);
+  }
+
+  template <uint32_t P, int kCols>
+  static __device__ void pointwise(uint32_t* x, const uint32_t* d0,
+                                   const uint32_t* d1,
+                                   const uint16_t* __restrict__ key, int col0,
+                                   int n) {
+    digit_products<P, kCols>(x, d0, d1, key, col0, n);
+  }
+
+  // One output row's key polys of a step and prime: 6 runs of 4 polys.
+  static constexpr int kStageRuns = kDigits;
+  static constexpr int kStageRunPolys = kPlanes;
+  static constexpr int kStageRunStride = kOut;
+
+  template <uint32_t P>
+  static __device__ void pointwise_staged(uint32_t* x, const uint32_t* d0,
+                                          const uint32_t* d1,
+                                          const uint16_t* staged, int n) {
+    digit_products<P, 1, true>(x, d0, d1, staged, 0, n);
+  }
+
+  template <class T0, class T1>
+  static __device__ __forceinline__ uint32_t crt_sum(const T0* res0,
+                                                     const T1* res1, int r,
+                                                     int t, int n) {
+    return plane_sum(res0, res1, r, t, n);
+  }
+};
+
+bool valid(int n, int cluster) {
+  return n >= 64 && n <= 2048 && !(n & (n - 1)) &&
+         (cluster == 1 || cluster == 2 || cluster == 4);
+}
+
 }  // namespace
 
 // acc_in, acc_out: int32 [batch, 2, n]; amounts: int32 [batch, n_steps];
-// khat: u16 [n_steps, 2, 6, 8, n]; tw: u32 [2 primes, 2 (fwd, inv), n].
-// Launches on `stream`; returns the cudaError_t of the launch.
+// khat: u16 [n_steps, 2, 6, 8, n]; tw: u32 [2 primes, 2 (fwd, inv), n,
+// 2 (twiddle, its Shoup quotient)] (ntt.kernel_twiddles);
+// cluster: blocks per item, 1, 2 or 4.  Launches on `stream`; returns the
+// cudaError_t of the launch.
 extern "C" int fhe_blind_rotate32(const void* acc_in, void* acc_out,
                                   const void* amounts, const void* khat,
                                   const void* tw, int batch, int n_steps,
-                                  int n, void* stream) {
-  if (n < 64 || n > 2048 || (n & (n - 1)) || batch < 0 || n_steps < 0)
+                                  int n, int cluster, void* stream) {
+  if (!valid(n, cluster) || batch < 0 || n_steps < 0)
     return static_cast<int>(cudaErrorInvalidValue);
   int log_n = 0;
   while ((1 << log_n) < n) ++log_n;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (cluster == 2)
+    return rotate_cluster::launch<Spec, 2>(acc_in, acc_out, amounts, khat, tw,
+                                           batch, n_steps, n, log_n, s);
+  if (cluster == 4)
+    return rotate_cluster::launch<Spec, 4>(acc_in, acc_out, amounts, khat, tw,
+                                           batch, n_steps, n, log_n, s);
   const size_t smem = static_cast<size_t>(kRows + kOut) * n * 4 +
                       static_cast<size_t>(kOut) * n * 2;
   cudaError_t err = cudaFuncSetAttribute(
@@ -262,13 +288,21 @@ extern "C" int fhe_blind_rotate32(const void* acc_in, void* acc_out,
       static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
   if (batch == 0) return 0;
-  blind_rotate32_kernel<<<batch, kThreads, smem,
-                          static_cast<cudaStream_t>(stream)>>>(
+  blind_rotate32_kernel<<<batch, kThreads, smem, s>>>(
       static_cast<const int32_t*>(acc_in), static_cast<int32_t*>(acc_out),
       static_cast<const int32_t*>(amounts),
-      static_cast<const uint16_t*>(khat), static_cast<const uint32_t*>(tw),
+      static_cast<const uint16_t*>(khat), static_cast<const uint2*>(tw),
       n_steps, n, log_n);
   return static_cast<int>(cudaGetLastError());
+}
+
+// How many clusters of the body (cluster = 2 or 4) the current device runs
+// at once at this n, or minus the cudaError_t.
+extern "C" int fhe_blind_rotate32_max_clusters(int n, int cluster) {
+  if (!valid(n, cluster) || cluster == 1)
+    return -static_cast<int>(cudaErrorInvalidValue);
+  return cluster == 2 ? rotate_cluster::max_active_clusters<Spec, 2>(n)
+                      : rotate_cluster::max_active_clusters<Spec, 4>(n);
 }
 
 extern "C" const char* fhe_cuda_error_string(int err) {

@@ -24,35 +24,57 @@
 // Exactness.  |W_s| <= 3 (la, lb) pairs * R * N * 128 * 128 = 2.01e8 at
 // R = 2 digit rows and N = 2048, below M/2 = 1.26e9 with
 // M = 40961 * 61441 = 2,516,684,801, so the centered CRT returns W_s
-// itself.  Residues are < 2^16, so every product of two residues is < 2^32
-// and a sum of 6 reduced products is < 2^19: 32-bit arithmetic in the
-// transforms.  The accumulator wraps mod 2^64 in uint64_t.
+// itself.  Residues are < 2^16, so every product of two residues is < 2^32:
+// the transforms work in 32-bit words (ntt64.cuh says how far they may
+// grow), and a plane's 6 products are summed in 64 bits and reduced once.
+// The accumulator wraps mod 2^64 in uint64_t.
 //
 // Design.  The TPU kernel's sequential grid axis over the n steps is a
-// loop inside the block: one block per batch item keeps its u64
-// accumulator in shared memory for all n steps and writes it once.  Shared
-// memory per block at N = 2048 (P = product polys, 16 exact, 10 approx):
-// accumulator 32 KB, one work buffer of P polys (digit-limb hats, then
-// products) 4 * P * N bytes, the prime-40961 results as u16 2 * P * N
-// bytes: 224 KB exact (229,376 of the 232,448 bytes a block may use),
-// 152 KB approx.  So one block runs per SM; the block takes 1024 threads
-// to give the SM enough warps.  The key hats arrive with 1/N folded in, so
-// the inverse transform needs no final scaling.
+// loop inside the kernel: an item's u64 accumulator stays in shared memory
+// for all n steps and is written once.  Three bodies give the same bits:
 //
-// What bounds it.  The butterflies: per step and prime 6 forward and 16
-// (approx: 10) inverse transforms of length N, each N/2 * log2(N) modular
-// butterflies on the CUDA cores, one __syncthreads per stage.  The key:
-// every block re-reads this step's 256 KB (approx: 224 KB) of key hats
-// from L2 or device memory on every step; blocks on the same step share it
-// through L2.
+//   1 block per item (1,024 threads; at N = 2048, with P product polys, 16
+//     exact and 10 approx: accumulator 32 KB, one work buffer of P polys
+//     for the digit-limb hats and then the products 4 P N bytes, the
+//     prime-40961 residues as u16 2 P N bytes: 224 KB exact, 229,376 of
+//     the 232,448 bytes a block may use, 152 KB approx; one block an SM),
+//     the primes in turn;
+//   a thread-block cluster of 2 or 4 blocks per item (rotate_cluster.cuh),
+//     split by prime, or by prime and output row: 16 or 8 of the production
+//     mode's 32 transforms a block (22 or 11 of the exact mode's 44), the
+//     parts exchanged through distributed shared memory; 152 or 164 KB a
+//     block in the production mode, 224 or 200 KB in the exact mode: the
+//     4-block body also holds its 64 KB quarter of a step's key, copied in
+//     a step ahead.
 //
 // The transforms, the pointwise products and the CRT are in ntt64.cuh,
-// shared with the one-step external product ntt_ext.cu.
+// shared with the one-step external product ntt_ext.cu.  The key hats
+// arrive with 1/N folded in, so the inverse transform needs no final
+// scaling.
+//
+// What bounds it.  Integer instructions on the CUDA cores, not memory: a
+// step reads 256 KB (approx: 224 KB) of key hats (194.5 MB a launch, under
+// 0.1 ms of HBM time; blocks on the same step share it through L2) and
+// does, in the production mode, 32 transforms of length N, 360,448
+// butterflies of 5 integer instructions (a Shoup product and two lazy
+// adds), and 245,760 multiply-adds: 2.0e6 instructions an item-step at the
+// least (exact: 2.8e6), 0.73 ms for B = 8 and 186 ms for B = 2048 at an
+// H100's 64 int32 lanes x 132 SMs x 1.98 GHz.  One item on one SM can use
+// 1/132 of that rate, and a request's batches are 5 to 40 items, so the
+// clusters spread an item over 4 SMs while the batch leaves them idle: at
+// B = 8 the 4-block body reaches about 5% of the bound (the one-block body
+// 1.8%); at B = 2048 the one-block body reaches about 29% of it.  The rest
+// goes to shared memory traffic and address arithmetic (9 instructions a
+// butterfly as compiled), bank conflicts in the passes of distance 16 and
+// below, the key's 2-byte loads from L2 in the pointwise products of the
+// 1- and 2-block bodies (a fifth of a step), and barriers; tensor-core
+// transforms are later work.
 
 #include <cstdint>
 #include <cuda_runtime.h>
 
 #include "ntt64.cuh"
+#include "rotate_cluster.cuh"
 
 namespace {
 
@@ -66,13 +88,14 @@ __device__ __forceinline__ uint32_t round_top(uint64_t v) {
   return ((hi >> 9) + ((hi >> 8) & 1u)) & kDigitMask;
 }
 
-// Digit limbs of step amount a as residues mod P: x[(r * 3 + la) * n + t].
-// Exact: numpy_ref.decompose(acc * X^a - acc, 23, 1); rounded:
-// numpy_ref.cmux_rounded's digit.  Limbs as pbs.balanced_limbs_i32.
+// Digit limbs of step amount a of the `rows` accumulator rows at acc, as
+// residues mod P: x[(r * 3 + la) * n + t].  Exact: numpy_ref.decompose(acc *
+// X^a - acc, 23, 1); rounded: numpy_ref.cmux_rounded's digit.  Limbs as
+// pbs.balanced_limbs_i32.
 template <uint32_t P, bool kRounded>
-__device__ void load_digits(uint32_t* x, const uint64_t* acc, int a, int n,
-                            int log_n) {
-  for (int idx = threadIdx.x; idx < kRows * n; idx += blockDim.x) {
+__device__ void load_digits(uint32_t* x, const uint64_t* acc, int rows, int a,
+                            int n, int log_n) {
+  for (int idx = threadIdx.x; idx < rows * n; idx += blockDim.x) {
     const int r = idx >> log_n;
     const int t = idx & (n - 1);
     const int src = (t - a) & (2 * n - 1);
@@ -107,9 +130,9 @@ __device__ void crt_accumulate(uint64_t* acc, const uint16_t* res0,
 template <uint32_t P, bool kRounded, bool kApprox>
 __device__ void external_product_mod(uint32_t* x, const uint64_t* acc, int a,
                                      const uint16_t* __restrict__ key,
-                                     const uint32_t* __restrict__ tw, int n,
+                                     const uint2* __restrict__ tw, int n,
                                      int log_n) {
-  load_digits<P, kRounded>(x, acc, a, n, log_n);
+  load_digits<P, kRounded>(x, acc, kRows, a, n, log_n);
   product_mod<P, kApprox>(x, key, tw, n, log_n);
 }
 
@@ -119,7 +142,7 @@ blind_rotate64_kernel(const uint64_t* __restrict__ acc_in,
                       uint64_t* __restrict__ acc_out,
                       const int32_t* __restrict__ amounts,
                       const uint16_t* __restrict__ khat,
-                      const uint32_t* __restrict__ tw, int n_steps, int n,
+                      const uint2* __restrict__ tw, int n_steps, int n,
                       int log_n) {
   constexpr int kOut = Planes<kApprox>::kOut;
   extern __shared__ uint64_t smem[];
@@ -150,10 +173,58 @@ blind_rotate64_kernel(const uint64_t* __restrict__ acc_in,
     out[idx] = acc[idx];
 }
 
+// What the cluster bodies (rotate_cluster.cuh) take from this kernel.
+template <bool kRounded, bool kApprox>
+struct Spec {
+  using Acc = uint64_t;
+  static constexpr int kCount = Planes<kApprox>::kCount;
+  static constexpr int kKeyPolys = kRows * ntt64::kKeyPolys;
+
+  template <uint32_t P>
+  static __device__ void digits(uint32_t* x, const uint64_t* acc, int rows,
+                                int a, int n, int log_n) {
+    load_digits<P, kRounded>(x, acc, rows, a, n, log_n);
+  }
+
+  template <uint32_t P, int kCols>
+  static __device__ void pointwise(uint32_t* x, const uint32_t* d0,
+                                   const uint32_t* d1,
+                                   const uint16_t* __restrict__ key, int col0,
+                                   int n) {
+    ntt64::pointwise<P, kApprox, kCols>(x, d0, d1, key, col0, n);
+  }
+
+  // One output row's key polys of a step and prime: 2 runs of 8 polys.
+  static constexpr int kStageRuns = kRows;
+  static constexpr int kStageRunPolys = kKeyPlanes;
+  static constexpr int kStageRunStride = ntt64::kKeyPolys;
+
+  template <uint32_t P>
+  static __device__ void pointwise_staged(uint32_t* x, const uint32_t* d0,
+                                          const uint32_t* d1,
+                                          const uint16_t* staged, int n) {
+    ntt64::pointwise<P, kApprox, 1, true>(x, d0, d1, staged, 0, n);
+  }
+
+  template <class T0, class T1>
+  static __device__ __forceinline__ uint64_t crt_sum(const T0* res0,
+                                                     const T1* res1, int r,
+                                                     int t, int n) {
+    return ntt64::crt_sum<kApprox>(res0, res1, r, t, n);
+  }
+};
+
 template <bool kRounded, bool kApprox>
 int launch(const void* acc_in, void* acc_out, const void* amounts,
            const void* khat, const void* tw, int batch, int n_steps, int n,
-           int log_n, cudaStream_t stream) {
+           int log_n, int cluster, cudaStream_t stream) {
+  using S = Spec<kRounded, kApprox>;
+  if (cluster == 2)
+    return rotate_cluster::launch<S, 2>(acc_in, acc_out, amounts, khat, tw,
+                                        batch, n_steps, n, log_n, stream);
+  if (cluster == 4)
+    return rotate_cluster::launch<S, 4>(acc_in, acc_out, amounts, khat, tw,
+                                        batch, n_steps, n, log_n, stream);
   constexpr int kOut = Planes<kApprox>::kOut;
   const size_t smem = static_cast<size_t>(kRows) * n * 8 +
                       static_cast<size_t>(kOut) * n * (4 + 2);
@@ -166,38 +237,63 @@ int launch(const void* acc_in, void* acc_out, const void* amounts,
   kernel<<<batch, kThreads, smem, stream>>>(
       static_cast<const uint64_t*>(acc_in), static_cast<uint64_t*>(acc_out),
       static_cast<const int32_t*>(amounts),
-      static_cast<const uint16_t*>(khat), static_cast<const uint32_t*>(tw),
+      static_cast<const uint16_t*>(khat), static_cast<const uint2*>(tw),
       n_steps, n, log_n);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <bool kRounded, bool kApprox>
+int max_clusters(int n, int cluster) {
+  using S = Spec<kRounded, kApprox>;
+  return cluster == 2 ? rotate_cluster::max_active_clusters<S, 2>(n)
+                      : rotate_cluster::max_active_clusters<S, 4>(n);
+}
+
+bool valid(int n, int cluster) {
+  return n >= 64 && n <= 2048 && !(n & (n - 1)) &&
+         (cluster == 1 || cluster == 2 || cluster == 4);
 }
 
 }  // namespace
 
 // acc_in, acc_out: u64 [batch, 2, n]; amounts: int32 [batch, n_steps];
 // khat: u16 [n_steps, 2 primes, 2 digit rows, 16, n]; tw: u32 [2 primes,
-// 2 (fwd, inv), n]; rounded, approx: the mode (0 or 1).  Launches on
-// `stream`; returns the cudaError_t of the launch.
+// 2 (fwd, inv), n, 2 (twiddle, its Shoup quotient)] (ntt.kernel_twiddles);
+// rounded, approx: the mode (0 or 1); cluster: blocks per item, 1, 2 or 4.
+// Launches on `stream`; returns the cudaError_t of the launch.
 extern "C" int fhe_blind_rotate64(const void* acc_in, void* acc_out,
                                   const void* amounts, const void* khat,
                                   const void* tw, int batch, int n_steps,
                                   int n, int rounded, int approx,
-                                  void* stream) {
-  if (n < 64 || n > 2048 || (n & (n - 1)) || batch < 0 || n_steps < 0)
+                                  int cluster, void* stream) {
+  if (!valid(n, cluster) || batch < 0 || n_steps < 0)
     return static_cast<int>(cudaErrorInvalidValue);
   int log_n = 0;
   while ((1 << log_n) < n) ++log_n;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (rounded && approx)
     return launch<true, true>(acc_in, acc_out, amounts, khat, tw, batch,
-                              n_steps, n, log_n, s);
+                              n_steps, n, log_n, cluster, s);
   if (rounded)
     return launch<true, false>(acc_in, acc_out, amounts, khat, tw, batch,
-                               n_steps, n, log_n, s);
+                               n_steps, n, log_n, cluster, s);
   if (approx)
     return launch<false, true>(acc_in, acc_out, amounts, khat, tw, batch,
-                               n_steps, n, log_n, s);
+                               n_steps, n, log_n, cluster, s);
   return launch<false, false>(acc_in, acc_out, amounts, khat, tw, batch,
-                              n_steps, n, log_n, s);
+                              n_steps, n, log_n, cluster, s);
+}
+
+// How many clusters of the body (cluster = 2 or 4) the current device runs
+// at once at this n and mode, or minus the cudaError_t.
+extern "C" int fhe_blind_rotate64_max_clusters(int n, int rounded, int approx,
+                                               int cluster) {
+  if (!valid(n, cluster) || cluster == 1)
+    return -static_cast<int>(cudaErrorInvalidValue);
+  if (rounded && approx) return max_clusters<true, true>(n, cluster);
+  if (rounded) return max_clusters<true, false>(n, cluster);
+  if (approx) return max_clusters<false, true>(n, cluster);
+  return max_clusters<false, false>(n, cluster);
 }
 
 extern "C" const char* fhe_cuda_error_string(int err) {

@@ -22,10 +22,11 @@
 // u32 128 KB, the prime-40961 results u16 64 KB: 192 KB, so one block runs
 // per SM.  The result goes straight to device memory.
 //
-// What bounds it.  As blind_rotate64.cu's exact mode per step: the
-// butterflies on the CUDA cores (per prime 22 transforms of length N), one
-// __syncthreads per stage; every block reads the step's 256 KB of key hats
-// from L2.  A batch of up to 132 items takes one wave.
+// What bounds it.  As blind_rotate64.cu's exact mode per step: integer
+// instructions on the CUDA cores (per prime 22 transforms of length N in
+// passes of up to 3 stages, lazy Shoup butterflies; 2.8e6 instructions an
+// item at the least); every block reads the step's 256 KB of key hats from
+// L2.  A batch of up to 132 items takes one wave.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -60,7 +61,7 @@ __device__ void load_limbs(uint32_t* x, const int8_t* __restrict__ dl,
 __global__ void __launch_bounds__(kThreads, 1)
 ntt_ext_kernel(const int8_t* __restrict__ dl,
                const uint16_t* __restrict__ khat,
-               const uint32_t* __restrict__ tw, uint64_t* __restrict__ out,
+               const uint2* __restrict__ tw, uint64_t* __restrict__ out,
                int batch, int n, int log_n) {
   extern __shared__ uint32_t x[];                                 // [kOut][n]
   uint16_t* res0 = reinterpret_cast<uint16_t*>(x + kOut * n);     // [kOut][n]
@@ -83,7 +84,8 @@ ntt_ext_kernel(const int8_t* __restrict__ dl,
 
 // dl: int8 [3, batch, 2 * n] digit limbs (natural coefficient order);
 // khat: u16 [2 primes, 2 digit rows, 16, n] (one step of the
-// blind_rotate64 key); tw: u32 [2 primes, 2 (fwd, inv), n]; out: u64
+// blind_rotate64 key); tw: u32 [2 primes, 2 (fwd, inv), n, 2 (twiddle, its
+// Shoup quotient)] (ntt.kernel_twiddles); out: u64
 // [batch, 2, n].  Launches on `stream`; returns the cudaError_t of the
 // launch.
 extern "C" int fhe_ntt_ext(const void* dl, const void* khat, const void* tw,
@@ -100,7 +102,7 @@ extern "C" int fhe_ntt_ext(const void* dl, const void* khat, const void* tw,
   if (batch == 0) return 0;
   ntt_ext_kernel<<<batch, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int8_t*>(dl), static_cast<const uint16_t*>(khat),
-      static_cast<const uint32_t*>(tw), static_cast<uint64_t*>(out), batch, n,
+      static_cast<const uint2*>(tw), static_cast<uint64_t*>(out), batch, n,
       log_n);
   return static_cast<int>(cudaGetLastError());
 }

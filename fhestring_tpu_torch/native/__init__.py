@@ -1,11 +1,11 @@
 """Native (C++) client-side components, loaded with ctypes.
 
-The C++ sources are the JAX package's own (``fhestring_tpu/native/
-csprng.cpp`` and ``keygen.cpp``: AES-128-CTR randomness and the OpenMP TFHE
-keygen); only the files are read, nothing of that package is imported.
-They are compiled with g++ at first use into this package's build
-directory (``fhestring_tpu_torch/build/``), keyed by a hash of the source,
-so the JAX package's own libraries are never rebuilt or overwritten.
+The C++ sources are this package's own copies, ``csprng.cpp`` and
+``keygen.cpp`` beside this file (AES-128-CTR randomness and the OpenMP TFHE
+keygen; ``keygen.cpp`` includes ``csprng.cpp``), byte-identical to the JAX
+package's.  They are compiled with g++ at first use into this package's
+build directory (``fhestring_tpu_torch/build/``), keyed by a hash of the
+source, so the JAX package's own libraries are never rebuilt or overwritten.
 
 Semantics are those of ``fhestring_tpu.native``: the same AES key gives the
 same random stream and the same keys, so a ``ClientKey(seed=...)`` of either
@@ -23,7 +23,7 @@ import subprocess
 import numpy as np
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-_SRC_DIR = os.path.join(os.path.dirname(_PKG), "fhestring_tpu", "native")
+_SRC_DIR = os.path.dirname(os.path.abspath(__file__))
 BUILD_DIR = os.path.join(_PKG, "build")
 _LIBS: dict[str, ctypes.CDLL | None] = {}
 

@@ -1,7 +1,8 @@
 """The CUDA kernels on the card, against their plain versions:
 blind_rotate32 (turbo), blind_rotate64 (PARAM_PROD family, in its exact,
-rounded, rounded + approx and approx modes), and the step-wise 64-bit
-route's rotate_decompose, ext_product and ntt_ext.
+rounded, rounded + approx and approx modes), each in every body (1 block
+per item and clusters of 2 and 4), and the step-wise 64-bit route's
+rotate_decompose, ext_product and ntt_ext.
 
 These tests need a CUDA device and nvcc; without them they skip.  Run them
 on a GPU machine with ``python -m pytest --noconftest -m gpu
@@ -246,6 +247,148 @@ def test_contains64_on_cuda_equals_cpu_in_the_same_mode(cuda, monkeypatch):
     cpu_out = ck.get_server_key("cpu").contains(s, pat)
     assert torch.equal(out.blocks.ct.cpu(), cpu_out.blocks.ct)
     assert ck.decrypt_char(out) == 1
+
+
+# ---------------------------------------------------------------------------
+# the bodies of blind_rotate32 and blind_rotate64: 1 block per item, and
+# thread-block clusters of 2 and 4 blocks per item
+# ---------------------------------------------------------------------------
+
+BODY_SHAPES = [(1, 3, 64), (5, 4, 256), (33, 3, 256), (1, 3, 2048),
+               (5, 3, 2048), (33, 2, 2048)]
+
+
+def _boundary_amounts(gen, B, n_steps, n):
+    """Random amounts; item 0 starts with 0, N and 2N - 1."""
+    amt = torch.randint(0, 2 * n, (B, n_steps), dtype=torch.int32,
+                        generator=gen)
+    edge = torch.tensor([0, n, 2 * n - 1], dtype=torch.int32)[:n_steps]
+    amt[0, :len(edge)] = edge
+    return amt
+
+
+@pytest.mark.parametrize("cluster", br.CLUSTERS)
+@pytest.mark.parametrize("B,n_steps,n", BODY_SHAPES)
+def test_every_body_of_kernel32_matches_plain(cuda, B, n_steps, n, cluster):
+    gen = torch.Generator().manual_seed(B * n + cluster)
+    acc = torch.randint(-2**31, 2**31, (B, 2, n), dtype=torch.int32,
+                        generator=gen).to(cuda)
+    amt = _boundary_amounts(gen, B, n_steps, n).to(cuda)
+    khat = _random_khat(gen, n_steps, n).to(cuda)
+    before = br.blind_rotate32.launches, br.blind_rotate32.bodies[cluster]
+    got = br.blind_rotate32(acc, amt, khat, cluster=cluster)
+    torch.cuda.synchronize()
+    assert (br.blind_rotate32.launches,
+            br.blind_rotate32.bodies[cluster]) == (before[0] + 1,
+                                                   before[1] + 1)
+    assert torch.equal(got, br.blind_rotate32_plain(acc, amt, khat))
+
+
+@pytest.mark.parametrize("rounded,approx", MODES, ids=MODE_IDS)
+@pytest.mark.parametrize("cluster", br64.CLUSTERS)
+@pytest.mark.parametrize("B,n_steps,n", BODY_SHAPES)
+def test_every_body_of_kernel64_matches_plain(cuda, B, n_steps, n, cluster,
+                                              rounded, approx):
+    gen = torch.Generator().manual_seed(B * n + cluster)
+    acc = torch.randint(-2**63, 2**63 - 1, (B, 2, n), dtype=torch.int64,
+                        generator=gen).to(cuda)
+    amt = _boundary_amounts(gen, B, n_steps, n).to(cuda)
+    khat = _random_khat64(gen, n_steps, n).to(cuda)
+    before = br64.blind_rotate64.launches, br64.blind_rotate64.bodies[cluster]
+    got = br64.blind_rotate64(acc, amt, khat, rounded=rounded, approx=approx,
+                              cluster=cluster)
+    torch.cuda.synchronize()
+    assert (br64.blind_rotate64.launches,
+            br64.blind_rotate64.bodies[cluster]) == (before[0] + 1,
+                                                     before[1] + 1)
+    assert torch.equal(got, br64.blind_rotate64_plain(
+        acc, amt, khat, rounded=rounded, approx=approx))
+
+
+@pytest.mark.parametrize("cluster", br64.CLUSTERS)
+def test_every_body_matches_oracle_with_real_keys(cuda, key_material,
+                                                  key_material64, cluster):
+    """Each body over the whole rotation at the CI sets, against the numpy
+    oracle: K1 exact, K2 in the production mode."""
+    rng = np.random.default_rng(cluster)
+    B = 3
+    for params, (srv, dev), bits in ((P, key_material, 32),
+                                     (P64, key_material64, 64)):
+        N, n = params.polynomial_size, params.lwe_dimension
+        acc0 = rng.integers(0, 1 << bits, size=(B, 2, N),
+                            dtype=np.uint64) << np.uint64(64 - bits)
+        lwe = np.zeros((B, n + 1), np.int64)
+        lwe[:, :-1] = rng.integers(0, 2 * N, size=(B, n))
+        amt = torch.from_numpy(lwe[:, :-1].astype(np.int32)).to(cuda)
+        if bits == 32:
+            hi = br.blind_rotate32(torus.hi32(torus.from_numpy(acc0, cuda)),
+                                   amt, dev.bsk_ntt32, cluster=cluster)
+            got, mode = torus.to_numpy(torus.from_hi32(hi)), {}
+        else:
+            got = torus.to_numpy(br64.blind_rotate64(
+                torus.from_numpy(acc0, cuda), amt, dev.bsk_ntt64,
+                rounded=True, approx=True, cluster=cluster))
+            mode = dict(rounded=True, min_shift=3)
+        for i in range(B):
+            np.testing.assert_array_equal(
+                got[i], ref.blind_rotate(acc0[i], lwe[i], srv, **mode))
+
+
+@pytest.mark.parametrize("cluster", [2, 4])
+def test_cluster_bodies_on_two_streams_at_once(cuda, cluster):
+    """Two launches of a cluster body in flight on two streams, K1 on one
+    and K2 on the other, then swapped bodies: clusters of different items
+    and launches share no state."""
+    n, n_steps, B = 2048, 24, 20
+    gen = torch.Generator().manual_seed(cluster)
+    acc32 = torch.randint(-2**31, 2**31, (B, 2, n), dtype=torch.int32,
+                          generator=gen).to(cuda)
+    acc64 = torch.randint(-2**63, 2**63 - 1, (B, 2, n), dtype=torch.int64,
+                          generator=gen).to(cuda)
+    amt = torch.randint(0, 2 * n, (B, n_steps), dtype=torch.int32,
+                        generator=gen).to(cuda)
+    kh32 = _random_khat(gen, n_steps, n).to(cuda)
+    kh64 = _random_khat64(gen, n_steps, n).to(cuda)
+    want32 = br.blind_rotate32_plain(acc32, amt, kh32)
+    want64 = br64.blind_rotate64_plain(acc64, amt, kh64, rounded=True,
+                                       approx=True)
+    torch.cuda.synchronize()
+    streams = [torch.cuda.Stream(), torch.cuda.Stream()]
+    got = []
+    for _ in range(3):
+        with torch.cuda.stream(streams[0]):
+            a = br.blind_rotate32(acc32, amt, kh32, cluster=cluster)
+            c = br64.blind_rotate64(acc64, amt, kh64, rounded=True,
+                                    approx=True, cluster=6 - cluster)
+        with torch.cuda.stream(streams[1]):
+            b = br64.blind_rotate64(acc64, amt, kh64, rounded=True,
+                                    approx=True, cluster=cluster)
+            d = br.blind_rotate32(acc32, amt, kh32, cluster=6 - cluster)
+        got.append((a, b, c, d))
+    torch.cuda.synchronize()
+    for a, b, c, d in got:
+        assert torch.equal(a, want32) and torch.equal(d, want32)
+        assert torch.equal(b, want64) and torch.equal(c, want64)
+
+
+def test_picked_body_is_the_wrappers_choice(cuda):
+    """With cluster=None the wrapper runs the body ``pick_cluster`` names,
+    and the card runs at least one cluster of each body at N=2048."""
+    n, gen = 2048, torch.Generator().manual_seed(0)
+    for c in (2, 4):
+        assert br.max_active_clusters(0, c, n) >= 1
+        assert br64.max_active_clusters(0, c, n, True, True) >= 1
+        assert br64.max_active_clusters(0, c, n, False, False) >= 1
+    for B in (1, 40, 140, 300):
+        acc = torch.randint(-2**31, 2**31, (B, 2, n), dtype=torch.int32,
+                            generator=gen).to(cuda)
+        amt = torch.randint(0, 2 * n, (B, 2), dtype=torch.int32,
+                            generator=gen).to(cuda)
+        khat = _random_khat(gen, 2, n).to(cuda)
+        want = br.pick_cluster(B, n, 0)
+        before = br.blind_rotate32.bodies[want]
+        br.blind_rotate32(acc, amt, khat)
+        assert br.blind_rotate32.bodies[want] == before + 1
 
 
 # ---------------------------------------------------------------------------

@@ -25,6 +25,7 @@ MODULES = [
     "fhestring_tpu_torch.crypto.ntt",
     "fhestring_tpu_torch.crypto.keys",
     "fhestring_tpu_torch.crypto.kernels.cuda_build",
+    "fhestring_tpu_torch.crypto.kernels.cluster",
     "fhestring_tpu_torch.crypto.kernels.blind_rotate32",
     "fhestring_tpu_torch.crypto.kernels.blind_rotate64",
     "fhestring_tpu_torch.crypto.kernels.rotate_decompose",
@@ -39,6 +40,9 @@ MODULES = [
     "fhestring_tpu_torch.ciphertext",
     "fhestring_tpu_torch.client",
     "fhestring_tpu_torch.server",
+    "fhestring_tpu_torch.tools.rotation_sweep",
+    "fhestring_tpu_torch.tools.step_breakdown",
+    "fhestring_tpu_torch.tools.profile_requests",
 ]
 
 _PROBE = """
@@ -121,3 +125,72 @@ def test_client_key_defaults_to_param_prod(method):
         "params"].default
     assert default is PARAM_PROD
     assert dataclasses.asdict(default) == dataclasses.asdict(jax_default)
+
+
+NATIVE_SOURCES = ["csprng.cpp", "keygen.cpp"]
+
+
+@pytest.mark.parametrize("name", NATIVE_SOURCES)
+def test_native_sources_are_the_ports_own_copies(name):
+    """The port builds its keygen and CSPRNG from its own copies of the C++
+    sources, byte-identical to the JAX package's, so both packages derive
+    the same keys from a seed."""
+    from fhestring_tpu_torch import native
+
+    assert os.path.samefile(native._SRC_DIR,
+                            os.path.join(ROOT, "fhestring_tpu_torch", "native"))
+    with open(os.path.join(native._SRC_DIR, name), "rb") as f:
+        own = f.read()
+    with open(os.path.join(ROOT, "fhestring_tpu", "native", name), "rb") as f:
+        assert own == f.read()
+
+
+def test_native_sources_include_only_each_other():
+    """keygen.cpp includes csprng.cpp and no other file of the repository."""
+    local = []
+    for name in NATIVE_SOURCES:
+        with open(os.path.join(ROOT, "fhestring_tpu_torch", "native",
+                               name)) as f:
+            local += [ln.split('"')[1] for ln in f
+                      if ln.startswith("#include \"")]
+    assert local == ["csprng.cpp"]
+
+
+def _string_constants(path):
+    """Every string constant of a Python source that is not a docstring
+    (parts of f-strings included), with its line."""
+    with open(path) as f:
+        tree = ast.parse(f.read())
+    docstrings = set()
+    for node in ast.walk(tree):
+        if isinstance(node, (ast.Module, ast.ClassDef, ast.FunctionDef,
+                             ast.AsyncFunctionDef)):
+            body = node.body
+            if (body and isinstance(body[0], ast.Expr)
+                    and isinstance(body[0].value, ast.Constant)
+                    and isinstance(body[0].value.value, str)):
+                docstrings.add(id(body[0].value))
+    return [(node.value, node.lineno) for node in ast.walk(tree)
+            if isinstance(node, ast.Constant) and isinstance(node.value, str)
+            and id(node) not in docstrings]
+
+
+PORT_SOURCES = sorted(
+    os.path.join(d, f)
+    for d, _, files in os.walk(os.path.join(ROOT, "fhestring_tpu_torch"))
+    for f in files if f.endswith(".py")) + [os.path.join(ROOT, "chip_smoke.py")]
+
+
+@pytest.mark.parametrize("path", PORT_SOURCES,
+                         ids=[os.path.relpath(p, ROOT) for p in PORT_SOURCES])
+def test_port_names_no_path_of_the_jax_package(path):
+    """No module of the port, nor chip_smoke.py, can open a file under
+    ``fhestring_tpu/``: outside docstrings and comments, no string names
+    that directory, but for the ``replaces`` entries of chip_smoke's kernels
+    line (file:line of the TPU kernel each CUDA kernel replaces)."""
+    replaces = "fhestring_tpu/crypto/kernels/"
+    for value, line in _string_constants(path):
+        if path.endswith("chip_smoke.py") and value.startswith(replaces):
+            continue
+        parts = value.replace("\\", "/").split("/")
+        assert "fhestring_tpu" not in parts, (path, line, value)
