@@ -50,20 +50,28 @@ the phase-8 keys and on a server packed with ``with_ntt2=False``:
 
 13. K5, K3 and K4 each against its plain version at B=8 over a few steps
     of the prod key (step 0 with the amounts 0, N and 2N - 1), bit-exact,
-    both timed; then on step 0 at each B of SWEEP_B (K3 with 1 or 4 items
-    per block, as the wrapper picks it), and each K3 body at the last B;
+    K3 also adding into the accumulator (acc + ext); each kernel's device
+    time (20 launches captured into a CUDA graph) and, for K5 and K3, the
+    eager wall time a launch; then on step 0 at each B of SWEEP_B: K3 in
+    the picked body and in every body of K3_SWEEP_BODIES, fresh and
+    accumulating, against its plain version and against K4;
 14. pbs_batch of B=256 through the K3 route and through the K4 route:
     every output decrypts to table[m] and both equal pbs_batch with K2 in
     its exact mode, bit for bit; K4's launches are counted over its run;
+    then the step loop's graph: two different batches of one B through
+    one cached graph, and a second B, each with the bits of the eager
+    loop and of K2's exact mode, on both routes;
 15. the six requests through the ``with_ntt2=False`` server (the K5 + K3
     route): outputs equal Python's str, PBS counts equal PROD_COUNTS, K5
-    and K3 launch n times per PBS batch and K2 never;
+    and K3 launch n times per PBS batch and K2 never; each request's wall
+    time and the share of it the card spent in the replayed step graphs;
 16. PBS/s of pbs_batch through both routes at B=STEPWISE_B.
 
 Then one JSON line describing the five kernels, each with its time beside
 its bound: the least time the card could take, the larger of its bytes over
 the memory rate and its integer instructions over the int32 rate (no single
-PyTorch call computes any of them, so ``library_ms`` is null).  Last the line
+PyTorch call computes any of them, so ``library_ms`` is null); K3's, K4's
+and K5's ``ms`` are device times.  Last the line
 ``{"ok": true, "device": {...}}``.  Any failed phase raises and exits
 non-zero.  Usage (from the repository root):
 
@@ -89,10 +97,17 @@ PROD_COUNTS = {"Contains": (194, 5), "ContainsClear": (194, 5),
                "Find": (239, 13)}
 TABLE = [(7 * x + 3) % 16 for x in range(16)]
 STEPWISE_B = 2048  # batch of the step-wise routes' throughput (phase 16)
-# Batches of phase 13's sweep: at N=2048 on 132 SMs, ext_product's
-# items_per_block picks 1, 1, 1, 4 and 4 items per block, either side of
-# its switch, and the 4-item body's last block is partly filled.
+# Batches of phase 13's sweep: at N=2048 ext_product's pick_body takes 1, 1,
+# 2, 1 and 1 groups of 8 items per block (two groups only where that pads
+# the batch no further), and the last group of 33 and of 99 items is partly
+# filled.
 SWEEP_B = (1, 8, 32, 33, 99)
+# K3 bodies (groups, chunk, split) of that sweep, beside the picked one:
+# every groups; the smallest and the largest chunk; no split, a split in
+# two and a split all the way.
+K3_SWEEP_BODIES = ((1, 1024, 4), (1, 128, 32), (1, 2048, 1), (2, 512, 8),
+                   (2, 1024, 2), (2, 2048, 1), (2, 256, 16))
+GRAPH_LAUNCHES = 20  # launches captured to time a kernel on the device
 # Batches of the whole-rotation kernels' sweep (phases 4 and 9): either side
 # of each switch of the pick at N=2048 on an H100 (132 SMs; 66 clusters of
 # 2 and 30 of 4 run at once), and 5, the usual batch of Eq.
@@ -288,11 +303,15 @@ def pbs_known_lut(client, dkeys, phase, **mode):
     return bank
 
 
-def requests(client, server, counters, table_counts, phase):
+def requests(client, server, counters, table_counts, phase, spans=None):
     """The six requests through the served path.  counters: (kernel,
     launches per PBS batch) of each kernel the path must run that many
-    times (0: never).  Returns each kernel's launches counted over the
-    requests (every count is set to 0 just before)."""
+    times (0: never).  spans: a list that the run fills with (start, end)
+    CUDA events around device work of interest; each request then prints
+    the share of its wall time between them, after a first untimed pass
+    over the six.  Returns each kernel's
+    launches counted over the requests (every count is set to 0 just
+    before)."""
     import torch
 
     from fhestring_tpu_torch import metrics
@@ -308,7 +327,12 @@ def requests(client, server, counters, table_counts, phase):
     }
     inputs = (client.encrypt(S, 1), client.encrypt_no_padding(PAT),
               client.encrypt(PAT, 1))
+    if spans is not None:  # a first pass captures the batches' step graphs
+        for call, _ in calls.values():
+            call(*inputs)
     torch.cuda.synchronize()
+    if spans is not None:
+        spans.clear()
     for kernel, _ in counters:
         kernel.launches = 0
         if hasattr(kernel, "bodies"):
@@ -320,6 +344,10 @@ def requests(client, server, counters, table_counts, phase):
         out = call(*inputs)
         torch.cuda.synchronize()
         dt = time.perf_counter() - t0
+        inside = None
+        if spans is not None:
+            inside = sum(a.elapsed_time(b) for a, b in spans) / 1e3
+            spans.clear()
         got = (client.decrypt(out) if isinstance(expected, str)
                else client.decrypt_char(out))
         counts = (metrics.GLOBAL.pbs_items, metrics.GLOBAL.pbs_calls)
@@ -328,7 +356,7 @@ def requests(client, server, counters, table_counts, phase):
         if counts != table_counts[method]:
             fail(f"{method}: PBS (items, batches) {counts}, table "
                  f"{table_counts[method]}")
-        rows.append((method, got, counts, dt))
+        rows.append((method, got, counts, dt, inside))
     launches = [kernel.launches for kernel, _ in counters]
     batches = sum(r[2][1] for r in rows)
     for (kernel, per_batch), count in zip(counters, launches):
@@ -337,12 +365,17 @@ def requests(client, server, counters, table_counts, phase):
                  f"per PBS batch x {batches} batches")
     print(f"phase {phase} requests: " + "; ".join(
         f"{m}={g!r} pbs={c[0]} batches={c[1]} {dt * 1e3:.0f} ms"
-        for m, g, c, dt in rows) + "; launches " + ", ".join(
+        + ("" if inside is None else
+           f" ({100 * inside / dt:.1f}% in the step graphs)")
+        for m, g, c, dt, inside in rows) + "; launches " + ", ".join(
             f"{kernel.__name__} {count}"
             + ("".join(f" <{c}> x{k}" for c, k in kernel.bodies.items())
                if hasattr(kernel, "bodies") else "")
             for (kernel, _), count in zip(counters, launches))
-          + f"; the six together {sum(r[3] for r in rows) * 1e3:.0f} ms")
+          + f"; the six together {sum(r[3] for r in rows) * 1e3:.0f} ms"
+          + ("" if spans is None else
+             f", {100 * sum(r[4] for r in rows) / sum(r[3] for r in rows):.1f}"
+             f"% of it in the step graphs"))
     return launches
 
 
@@ -390,18 +423,21 @@ def throughput(client, dkeys, bank, kernel, plain, make_acc, khat, phase,
           f"{t_plain:.1f} ms = {plain_rate:.1f}/s")
 
 
-def stepwise_kernels(dkeys, phase, steps=4, batch=8, repeat=20):
+def stepwise_kernels(dkeys, phase, steps=4, batch=8):
     """K5, K3 and K4 against their plain versions over `steps` steps of
-    the prod key at B=batch, the accumulator advancing by K3's product;
-    step 0 takes the amounts 0, N and 2N - 1.  Returns {name: (max |diff|,
-    kernel ms, plain ms)}, the times of step 0 (kernel: the mean of
-    `repeat` launches after a warm-up; plain: one run after a warm-up)."""
+    the prod key at B=batch, the accumulator advancing by K3's product
+    (added by K3 itself, and held against acc + ext); step 0 takes the
+    amounts 0, N and 2N - 1.  Returns {name: (max |diff|, kernel ms, plain
+    ms)}, the times of step 0: the kernel's device time (``tools.graph_ms``:
+    GRAPH_LAUNCHES launches captured into a CUDA graph; timing launches are
+    not counted), the plain version's one run after a warm-up."""
     import torch
 
     from fhestring_tpu_torch import torus
     from fhestring_tpu_torch.crypto.kernels import ext_product as ep
     from fhestring_tpu_torch.crypto.kernels import ntt_ext as ne
     from fhestring_tpu_torch.crypto.kernels import rotate_decompose as rd
+    from fhestring_tpu_torch.tools import graph_ms, wall_ms
 
     dev = dkeys.bsk_limbs.device
     N = dkeys.params.polynomial_size
@@ -412,27 +448,39 @@ def stepwise_kernels(dkeys, phase, steps=4, batch=8, repeat=20):
                         generator=gen)
     amt[0, :3] = torch.tensor([0, N, 2 * N - 1], dtype=torch.int32)
     amt = amt.to(dev)
-    result = {}
+    result, wall = {}, {}
     for j in range(steps):
         a, limbs, khat = amt[j], dkeys.bsk_limbs[j], dkeys.bsk_ntt64[j]
         dl = rd.rotate_diff_decompose(acc, a)
-        pairs = {
-            "rotate_decompose": (lambda: rd.rotate_diff_decompose(acc, a),
-                                 lambda: rd.rotate_diff_decompose_plain(acc, a)),
-            "ext_product": (lambda: ep.ext_product(dl, limbs),
-                            lambda: ep.ext_product_plain(dl, limbs)),
-            "ntt_ext": (lambda: ne.ntt_ext(dl, khat),
-                        lambda: ne.ntt_ext_plain(dl, khat)),
+        dl_out, ext_out = torch.empty_like(dl), torch.empty_like(acc)
+        # name: (returning form, plain version, form the step loop times)
+        trio = {
+            "rotate_decompose": (
+                lambda: rd.rotate_diff_decompose(acc, a),
+                lambda: rd.rotate_diff_decompose_plain(acc, a),
+                lambda: rd.rotate_diff_decompose(acc, a, out=dl_out)),
+            "ext_product": (
+                lambda: ep.ext_product(dl, limbs),
+                lambda: ep.ext_product_plain(dl, limbs),
+                lambda: ep.ext_product(dl, limbs, out=ext_out,
+                                       accumulate=True)),
+            "ntt_ext": (
+                lambda: ne.ntt_ext(dl, khat),
+                lambda: ne.ntt_ext_plain(dl, khat),
+                lambda: ne.ntt_ext(dl, khat, out=ext_out)),
         }
         outs = {}
-        for name, (kernel, plain) in pairs.items():
+        for name, (kernel, plain, looped) in trio.items():
             if j == 0:
-                kernel(), plain()  # warm-up
-                ms, got = cuda_ms(kernel, repeat=repeat)
+                plain()  # warm-up
+                ms = graph_ms(looped, GRAPH_LAUNCHES)
+                if name != "ntt_ext":
+                    wall[name] = wall_ms(looped)
                 plain_ms, want = cuda_ms(plain)
             else:
                 ms = plain_ms = None
-                got, want = kernel(), plain()
+                want = plain()
+            got = kernel()
             err = max_abs_err(got, want)
             if err or not torch.equal(got, want):
                 fail(f"{name} differs from its plain version at step {j}: "
@@ -442,20 +490,28 @@ def stepwise_kernels(dkeys, phase, steps=4, batch=8, repeat=20):
             outs[name] = got
         if not torch.equal(outs["ext_product"], outs["ntt_ext"]):
             fail(f"ext_product and ntt_ext differ at step {j}")
-        acc = torus.add(acc, outs["ext_product"])
+        want = torus.add(acc, outs["ext_product"])
+        acc = ep.ext_product(dl, limbs, out=acc, accumulate=True)
+        if not torch.equal(acc, want):
+            fail(f"ext_product(accumulate=True) differs from acc + ext at "
+                 f"step {j}")
     print(f"phase {phase} step-wise kernels vs plain: B={batch} N={N}, "
-          f"{steps} steps of the prod key, bit-exact, K3 = K4; " + "; ".join(
+          f"{steps} steps of the prod key, bit-exact, K3 = K4, K3 "
+          f"accumulating = acc + ext; device time of a launch (a graph of "
+          f"{GRAPH_LAUNCHES}): " + "; ".join(
               f"{name} kernel {ms:.4f} ms, plain {plain_ms:.3f} ms "
               f"({plain_ms / ms:.1f}x)"
-              for name, (_, ms, plain_ms) in result.items()))
+              for name, (_, ms, plain_ms) in result.items())
+          + "; eager wall time of a launch: " + ", ".join(
+              f"{name} {ms:.4f} ms" for name, ms in wall.items()))
     return result
 
 
 def stepwise_batches(dkeys, phase):
     """K5, K3 and K4 against their plain versions on step 0 of the prod key
-    at each B of SWEEP_B, K3 at the body ``items_per_block`` picks; then
-    each K3 body (1 and 4 items per block) at the last B, which leaves the
-    4-item body's last block partly filled."""
+    at each B of SWEEP_B: K3 in the body ``pick_body`` takes and in every
+    body of K3_SWEEP_BODIES, returning a fresh tensor and adding into an
+    accumulator, all equal to the plain version and so to K4."""
     import torch
 
     from fhestring_tpu_torch.crypto.kernels import ext_product as ep
@@ -473,6 +529,7 @@ def stepwise_batches(dkeys, phase):
                             generator=gen).to(dev)
         a = torch.randint(0, 2 * N, (b,), dtype=torch.int32,
                           generator=gen).to(dev)
+        a[:3] = torch.tensor([0, N, 2 * N - 1], dtype=torch.int32)[:b]
         dl = rd.rotate_diff_decompose(acc, a)
         if not torch.equal(dl, rd.rotate_diff_decompose_plain(acc, a)):
             fail(f"rotate_decompose differs from its plain version at B={b}")
@@ -480,18 +537,20 @@ def stepwise_batches(dkeys, phase):
         got = {"ext_product": ep.ext_product(dl, limbs),
                "ntt_ext": ne.ntt_ext(dl, khat),
                "ntt_ext plain": ne.ntt_ext_plain(dl, khat)}
-        if b == SWEEP_B[-1]:
-            got.update({f"ext_product<{i}>": ep.ext_product(dl, limbs, items=i)
-                        for i in ep.ITEMS})
+        for body in K3_SWEEP_BODIES:
+            got[f"ext_product{body}"] = ep.ext_product(dl, limbs, body=body)
+            got[f"ext_product{body} accumulating"] = ep.ext_product(
+                dl, limbs, out=acc.clone(), accumulate=True, body=body) - acc
         for name, out in got.items():
             if not torch.equal(out, want):
                 fail(f"{name} differs from ext_product's plain version at "
                      f"B={b}: max |diff| {max_abs_err(out, want)}")
-        picked.append(f"B={b}: K3<{ep.items_per_block(b, N, sms)}>")
+        picked.append(f"B={b}: K3{ep.pick_body(b, N, sms)}")
     print(f"phase {phase} step-wise kernels vs plain by batch: N={N}, step 0 "
-          f"of the prod key, K5, K3 and K4 bit-exact; " + ", ".join(picked)
-          + "; K3<" + ",".join(map(str, ep.ITEMS)) + "> each at "
-          f"B={SWEEP_B[-1]} bit-exact")
+          f"of the prod key, K5, K3 and K4 bit-exact; picked (groups, chunk, "
+          f"split) " + ", ".join(picked) + f"; and K3 in each of "
+          f"{len(K3_SWEEP_BODIES)} more bodies, fresh and accumulating, "
+          f"bit-exact at every B")
 
 
 STEPWISE_ROUTES = {"K3": {"use_pallas": True}, "K4": {"use_ntt2": True}}
@@ -537,6 +596,69 @@ def stepwise_pbs(client, dkeys, bank, phase):
           f"table[m]; K3 and K4 routes bit-identical to K2 exact; "
           + "; ".join(line) + f"; ntt_ext launches {k4_launches}")
     return k4_launches
+
+
+def stepwise_graph(dkeys, phase, batches=(15, 5)):
+    """The step loop's CUDA graph on both routes: at the first B of
+    `batches` two different inputs through one cached graph, then one at
+    the second B; every result has the bits of the eager loop and of K2's
+    exact mode, each B captures once, and a replay counts n launches of K5
+    and of the route's product kernel.  A capture or a replay that raises
+    fails the run."""
+    import torch
+
+    from fhestring_tpu_torch.crypto import pbs
+    from fhestring_tpu_torch.crypto.kernels import blind_rotate64 as br64
+    from fhestring_tpu_torch.crypto.kernels import ext_product as ep
+    from fhestring_tpu_torch.crypto.kernels import ntt_ext as ne
+    from fhestring_tpu_torch.crypto.kernels import rotate_decompose as rd
+
+    dev = dkeys.bsk_limbs.device
+    N, n = dkeys.params.polynomial_size, dkeys.params.lwe_dimension
+    gen = torch.Generator().manual_seed(phase)
+    line = []
+    for label, route in STEPWISE_ROUTES.items():
+        use_ntt2 = "use_ntt2" in route
+        product = ne.ntt_ext if use_ntt2 else ep.ext_product
+        times = []
+        for b, turns in zip(batches, (2, 1)):
+            held = len(pbs._STEP_GRAPHS)
+            for turn in range(turns):
+                acc = torch.randint(-2**63, 2**63 - 1, (b, 2, N),
+                                    dtype=torch.int64, generator=gen).to(dev)
+                amt = torch.randint(0, 2 * N, (b, n), dtype=torch.int32,
+                                    generator=gen).to(dev)
+                counts = rd.rotate_diff_decompose.launches, product.launches
+                t0 = time.perf_counter()
+                got = pbs._blind_rotate_stepwise(acc, amt, dkeys, use_ntt2)
+                torch.cuda.synchronize()
+                times.append(f"B={b} {(time.perf_counter() - t0) * 1e3:.1f} ms"
+                             + (" (with the capture)" if turn == 0 else ""))
+                if (rd.rotate_diff_decompose.launches - counts[0],
+                        product.launches - counts[1]) != (n, n):
+                    fail(f"{label} route: a replay counted "
+                         f"{rd.rotate_diff_decompose.launches - counts[0]} "
+                         f"and {product.launches - counts[1]} launches, not "
+                         f"{n} each")
+                t0 = time.perf_counter()
+                eager = pbs._blind_rotate_stepwise(acc, amt, dkeys, use_ntt2,
+                                                   graph=False)
+                torch.cuda.synchronize()
+                if turn:
+                    times.append(f"eager {(time.perf_counter() - t0) * 1e3:.1f}"
+                                 f" ms")
+                exact = br64.blind_rotate64(acc, amt, dkeys.bsk_ntt64)
+                if not (torch.equal(got, eager) and torch.equal(got, exact)):
+                    fail(f"{label} route, B={b}, input {turn}: the replayed "
+                         f"graph differs from the eager loop or from K2's "
+                         f"exact mode")
+            if len(pbs._STEP_GRAPHS) != held + 1:
+                fail(f"{label} route: B={b} captured "
+                     f"{len(pbs._STEP_GRAPHS) - held} graphs, not 1")
+        line.append(f"{label} route " + ", ".join(times))
+    print(f"phase {phase} step-loop graph: {n} steps replayed from one graph "
+          f"per (route, B), bit-identical to the eager loop and to K2 exact; "
+          + "; ".join(line))
 
 
 def stepwise_throughput(client, dkeys, bank, phase):
@@ -684,13 +806,28 @@ def main() -> int:
     step = stepwise_kernels(dkeys, 13)
     stepwise_batches(dkeys, 13)
     k4_launches = stepwise_pbs(client, dkeys, bank, 14)
+    stepwise_graph(dkeys, 14)
     server_nk = client.get_server_key(with_ntt2=False)
     if server_nk.backend.sc.keys.bsk_ntt64 is not None:
         fail("get_server_key(with_ntt2=False) packed the NTT key")
+    # the share of a request the card spends in the replayed step graphs:
+    # CUDA events around every replay
+    from fhestring_tpu_torch.crypto import pbs
+    spans, replay = [], pbs._replay_steps
+
+    def timed_replay(entry, use_ntt2):
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        replay(entry, use_ntt2)
+        end.record()
+        spans.append((start, end))
+
+    pbs._replay_steps = timed_replay
     k5_launches, k3_launches, _ = requests(
         client, server_nk, [(rd.rotate_diff_decompose, n),
                             (ep.ext_product, n), (br64.blind_rotate64, 0)],
-        PROD_COUNTS, 15)
+        PROD_COUNTS, 15, spans)
+    pbs._replay_steps = replay
     stepwise_throughput(client, dkeys, bank, 16)
 
     # One step at the batch of phase 13: K3 and K4 compute the same function

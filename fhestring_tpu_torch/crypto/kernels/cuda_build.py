@@ -92,6 +92,32 @@ def load(name: str, functions: dict) -> ctypes.CDLL:
     return _LIBS[name]
 
 
+_READY: dict[tuple[str, int], ctypes.CDLL] = {}
+
+
+def ready(name: str, functions: dict, init: str,
+          device_index: int) -> ctypes.CDLL:
+    """``load`` and, once per device, the library's ``init`` function
+    (``int init(void)``, a cudaError_t), which loads its kernels on the
+    current device and sets their attributes.  A stream capture can do
+    neither, so a caller that captures launches calls this first."""
+    if (name, device_index) not in _READY:
+        lib = load(name, functions)
+        with torch.cuda.device(device_index):
+            check(lib, getattr(lib, init)(), f"{name} init")
+        _READY[name, device_index] = lib
+    return _READY[name, device_index]
+
+
+def check_out(out: torch.Tensor, shape: tuple, dtype: torch.dtype,
+              device: torch.device) -> None:
+    """Raise unless ``out`` is a buffer a kernel can write its result to."""
+    if (out.dtype != dtype or tuple(out.shape) != tuple(shape)
+            or out.device != device or not out.is_contiguous()):
+        raise ValueError(f"out must be a contiguous {dtype} {tuple(shape)} "
+                         f"tensor on {device}")
+
+
 def check(lib: ctypes.CDLL, err: int, what: str) -> None:
     """Raise if a launch function returned a CUDA error code."""
     if err:

@@ -10,22 +10,28 @@ computes, for each batch item b and output row col:
 
 d[b, r] = sum_la 256^la * dl[la, b, r]: the 23-bit digits, given as their
 3 balanced int8 limbs (``rotate_decompose``'s output, natural coefficient
-order).  K[r, col] = sum_lb 256^lb * key[r, col, lb] (mod 2^64): the step's
-bootstrap-key polys, given as the 8 balanced byte limbs of each u64 value
-(``DeviceServerKeys.bsk_limbs[j]``).  The JAX kernel evaluates
+order).  K[r, col] (mod 2^64): the step's bootstrap-key polys, given as the
+reversed byte-limb planes of each poly doubled with its negation
+(``DeviceServerKeys.bsk_limbs[j]``, ``keys.pack_bsk_limbs``).  The JAX kernel evaluates
 sum_{la + lb < 8} 256^(la + lb) * (dl_la (x) key_lb) on int32 planes; the
 terms with la + lb >= 8 are multiples of 2^64, so both give the same bits.
 Its inputs were the c-reversed digits and the key limbs doubled to 2N and
 then 4N; those are layouts for the TPU's lanes and are not used here.
 
-The kernel (``csrc/ext_product.cu``) rebuilds each digit and each u64 key
-value in registers and multiply-adds in 64-bit integers; its source says how
-it is tiled.  What bounds it on an H100: the integer multiply-adds on the
-CUDA cores, 2 * N * (k+1) * N = 1.7e7 u64 products per item and step at
-N = 2048.
+The kernel (``csrc/ext_product.cu``) runs those limb products on the
+tensor cores (``mma.sync`` int8 x int8 -> int32), one int32 fragment per
+shift s = la + lb, and recombines them to u64 itself; the negacyclic
+(Toeplitz) operand is read from a staged window of the key's limb planes
+and never built.  Blocks that split the sum over c add their u64 partial
+sums with atomics, so the kernel adds into its output: the accumulator
+itself (``accumulate=True``: acc += ext in the same launch) or a zeroed
+buffer.  Its source says how it is tiled.  What bounds it on an H100: 3.5e8
+int8 multiply-adds per item and step at N = 2048, and at small batches the
+shared-memory loads of the operand fragments.
 
-The plain version builds, per (r, col), the negacyclic matrices of the 8
-byte limbs of the doubled key poly (as the JAX kernel's Hankel bands) and
+The plain version takes the limbs of K itself out of the key's planes,
+builds, per (r, col), the negacyclic matrices of the 8 byte limbs of the
+doubled key poly (as the JAX kernel's Hankel bands) and
 multiplies them with the digit limbs by ``torch._int_mm`` (int8 x int8 ->
 int32, exact: |sum| <= N * 128 * 128), then recombines the shift planes in
 int64.  Memory per (r, col): 8 int8 [N, N] matrices, 32 MB at N = 2048.
@@ -44,12 +50,19 @@ from .. import keys
 from . import blind_rotate64 as br64
 from . import cuda_build
 
-TILE = 128  # coefficients per block, the kernel's kTile
-ITEMS = (1, 4)  # batch items per block: the kernel's kItems bodies
+MIN_N = 128  # smallest polynomial size the kernel takes
+GROUPS = (1, 2)  # 8-item groups per block: the kernel's kGroups bodies
+ITEMS = 8  # batch items of one group (an n8 tile of the mma)
+M_TILE = 128  # output coefficients per block, the kernel's kMt
+CHUNK_STEP = 128  # a chunk of digit indices is a multiple of this
+SHARED_MEMORY = 232448  # bytes a block may use on an H100
 _VP = ctypes.c_void_p
 _INT = ctypes.c_int
-_FUNCTIONS = {"fhe_ext_product": ([_VP, _VP, _VP, _INT, _INT, _INT, _VP],
-                                  _INT)}
+_FUNCTIONS = {
+    "fhe_ext_product": ([_VP, _VP, _VP, _INT, _INT, _INT, _INT, _INT, _VP],
+                        _INT),
+    "fhe_ext_product_init": ([], _INT),
+}
 
 
 def build() -> str:
@@ -59,15 +72,57 @@ def build() -> str:
     return cuda_build.library_path("ext_product")
 
 
-def items_per_block(batch: int, n: int, sms: int) -> int:
-    """Batch items per block: 4 once that still gives the card two blocks
-    per SM (grid N/128 x (k+1) x ceil(B/4)), else 1, so a batch of a few
-    items still spreads over the SMs.  Measured on an H100 at N = 2048
-    (PERF.md): 1 item is faster up to B = 33, 4 from B = 43; a body of 8
-    items was never the fastest, one of 2 beat this choice by at most
-    16%."""
-    blocks = (n // TILE) * br64.GLWE_ROWS * -(-batch // ITEMS[-1])
-    return ITEMS[-1] if blocks >= 2 * sms else 1
+def _library(device_index: int) -> ctypes.CDLL:
+    return cuda_build.ready("ext_product", _FUNCTIONS, "fhe_ext_product_init",
+                            device_index)
+
+
+def prepare(device: torch.device) -> None:
+    """Everything a launch on that CUDA device needs that a stream capture
+    could not do: builds and loads the kernel."""
+    _library(device.index)
+
+
+def pick_body(batch: int, n: int, sms: int) -> tuple[int, int, int]:
+    """(groups, chunk, split) of the launch, from a sweep on an H100 at
+    N = 2048 (``tools/stepwise_sweep``).  groups: 8-item groups per block,
+    2 where that pads the batch no further than 1 does, or at large
+    batches.  chunk: digit indices staged at once, 1024, or 512 where the
+    blocks are so few that only the finer split gives the card 2 a SM.
+    split: blocks that share the 2N / chunk chunks of one output tile and
+    add their partial sums, doubled until the grid (N/128 x 2 ceil(B / 8
+    groups) x split) has 8 blocks a SM.  The result does not depend on the
+    body."""
+    pair = 2 * ITEMS
+    groups = 2 if batch >= 128 or -(-batch // pair) * 2 == -(-batch // ITEMS) \
+        else 1
+    blocks = (n // M_TILE) * br64.GLWE_ROWS * -(-batch // (ITEMS * groups))
+    chunk = min(n, 1024)
+    if chunk > 512 and blocks * (2 * n // chunk) < 2 * sms:
+        chunk = 512
+    chunks = 2 * n // chunk
+    split = 1
+    while split < chunks and blocks * split < 8 * sms:
+        split *= 2
+    return groups, chunk, split
+
+
+def shared_memory(groups: int, chunk: int) -> int:
+    """Bytes of shared memory of one block (the kernel's smem_bytes): 8 limb
+    planes x 4 shifted copies of the key window, 3 limbs x 8 groups rows of
+    digits, with the strides padded against bank conflicts."""
+    return 4 * (8 * 4 * (chunk // 4 + 40)
+                + br64.DIGIT_LIMBS * ITEMS * groups * (chunk // 4 + 4))
+
+
+def _check_body(body, n: int) -> None:
+    groups, chunk, split = body
+    if (groups not in GROUPS or chunk % CHUNK_STEP
+            or not CHUNK_STEP <= chunk <= n or split < 1
+            or (2 * n // chunk) % split
+            or shared_memory(groups, chunk) > SHARED_MEMORY):
+        raise ValueError(f"unsupported body (groups, chunk, split) = {body} "
+                         f"at N = {n}")
 
 
 def _check(dl: torch.Tensor, key: torch.Tensor) -> None:
@@ -75,11 +130,11 @@ def _check(dl: torch.Tensor, key: torch.Tensor) -> None:
         raise TypeError("dl and key must be int8")
     if dl.dim() != 3 or key.dim() != 4:
         raise ValueError("expected dl [3, B, (k+1)*N] and key "
-                         "[k+1, k+1, 8, N]")
-    kp1, N = br64.GLWE_ROWS, key.shape[-1]
-    if tuple(key.shape) != (kp1, kp1, keys.KEY_PLANES64, N):
+                         "[k+1, k+1, 8, 2N]")
+    kp1, N = br64.GLWE_ROWS, key.shape[-1] // 2
+    if tuple(key.shape) != (kp1, kp1, keys.KEY_PLANES64, 2 * N):
         raise ValueError(f"unsupported key shape {tuple(key.shape)}")
-    if N & (N - 1) or not TILE <= N <= 2048:
+    if N & (N - 1) or not MIN_N <= N <= 2048:
         raise ValueError(f"unsupported polynomial size {N}")
     if dl.shape[0] != br64.DIGIT_LIMBS or dl.shape[2] != kp1 * N:
         raise ValueError(f"dl shape {tuple(dl.shape)} does not match the key")
@@ -111,6 +166,7 @@ def ext_product_plain(dl: torch.Tensor, key: torch.Tensor) -> torch.Tensor:
     from ..pbs import _int8_matmul  # pbs imports this module
 
     _check(dl, key)
+    key = keys.doubled_limbs(key)[..., :key.shape[-1] // 2]  # limbs of K
     L, B, _ = dl.shape
     kp1, _, planes, N = key.shape
     d = dl.view(L, B, kp1, N)
@@ -127,35 +183,49 @@ def ext_product_plain(dl: torch.Tensor, key: torch.Tensor) -> torch.Tensor:
 
 
 def ext_product(dl: torch.Tensor, key: torch.Tensor,
-                items: int | None = None) -> torch.Tensor:
+                out: torch.Tensor | None = None, accumulate: bool = False,
+                body: tuple[int, int, int] | None = None) -> torch.Tensor:
     """One step's external product.
 
     dl: int8 [3, B, (k+1)*N] digit limbs (``rotate_diff_decompose``);
-    key: int8 [k+1, k+1, 8, N] byte limbs of the step's key polys
-    (``DeviceServerKeys.bsk_limbs[j]``).  Returns int64 [B, k+1, N]: the
-    external product mod 2^64 (u64 bits).  items: the kernel body, batch
-    items per block, one of ITEMS (default: ``items_per_block``); the
-    result does not depend on it.
+    key: int8 [k+1, k+1, 8, 2N] reversed limb planes of the step's doubled
+    key polys (``DeviceServerKeys.bsk_limbs[j]``).  Returns int64 [B, k+1, N]: the
+    external product mod 2^64 (u64 bits).  out: where to put it (no
+    allocation then); with accumulate=True the product is added to out (mod
+    2^64) instead, the step ``acc += ext`` in one launch.  body: the
+    kernel's (groups, chunk, split), default ``pick_body``; the result does
+    not depend on it.
 
     CPU tensors run ``ext_product_plain``; CUDA tensors launch the kernel
     (built at first use) and count the launch in ``ext_product.launches``.
     """
     _check(dl, key)
-    if items is not None and items not in ITEMS:
-        raise ValueError(f"items must be one of {ITEMS}, not {items}")
+    _, B, _ = dl.shape
+    kp1, N = key.shape[1], key.shape[-1] // 2
+    if out is not None:
+        cuda_build.check_out(out, (B, kp1, N), torch.int64, dl.device)
+    elif accumulate:
+        raise ValueError("accumulate=True needs out")
+    if body is not None:
+        _check_body(body, N)
     if dl.device.type == "cpu":
-        return ext_product_plain(dl, key)
+        ext = ext_product_plain(dl, key)
+        if out is None:
+            return ext
+        return out.add_(ext) if accumulate else out.copy_(ext)
     if dl.device.type != "cuda":
         raise ValueError(f"no external-product kernel for {dl.device}")
-    lib = cuda_build.load("ext_product", _FUNCTIONS)
-    _, B, _ = dl.shape
-    kp1, N = key.shape[1], key.shape[-1]
-    if items is None:
-        items = items_per_block(B, N, cuda_build.sm_count(dl.device.index))
-    out = torch.empty((B, kp1, N), dtype=torch.int64, device=dl.device)
+    lib = _library(dl.device.index)
+    if body is None:
+        body = pick_body(B, N, cuda_build.sm_count(dl.device.index))
+    # the kernel adds its blocks' partial sums into out
+    if out is None:
+        out = torch.zeros((B, kp1, N), dtype=torch.int64, device=dl.device)
+    elif not accumulate:
+        out.zero_()
     with torch.cuda.device(dl.device):
         err = lib.fhe_ext_product(
-            dl.data_ptr(), key.data_ptr(), out.data_ptr(), B, N, items,
+            dl.data_ptr(), key.data_ptr(), out.data_ptr(), B, N, *body,
             torch.cuda.current_stream().cuda_stream)
     cuda_build.check(lib, err, "ext_product")
     ext_product.launches += 1

@@ -43,7 +43,8 @@ from . import cuda_build
 
 _VP = ctypes.c_void_p
 _INT = ctypes.c_int
-_FUNCTIONS = {"fhe_ntt_ext": ([_VP, _VP, _VP, _VP, _INT, _INT, _VP], _INT)}
+_FUNCTIONS = {"fhe_ntt_ext": ([_VP, _VP, _VP, _VP, _INT, _INT, _VP], _INT),
+              "fhe_ntt_ext_init": ([], _INT)}
 
 
 def build() -> str:
@@ -51,6 +52,18 @@ def build() -> str:
     Returns the path of the shared library."""
     cuda_build.load("ntt_ext", _FUNCTIONS)
     return cuda_build.library_path("ntt_ext")
+
+
+def _library(device_index: int) -> ctypes.CDLL:
+    return cuda_build.ready("ntt_ext", _FUNCTIONS, "fhe_ntt_ext_init",
+                            device_index)
+
+
+def prepare(device: torch.device, n: int) -> None:
+    """Everything a launch on that CUDA device needs that a stream capture
+    could not do: builds and loads the kernel and puts the twiddle table of size n on it."""
+    _library(device.index)
+    ntt.kernel_twiddles(n, str(device))
 
 
 def _check(dl: torch.Tensor, khat_j: torch.Tensor) -> None:
@@ -82,27 +95,33 @@ def ntt_ext_plain(dl: torch.Tensor, khat_j: torch.Tensor) -> torch.Tensor:
     return br64.ext_product_ntt(limbs, khat_j)
 
 
-def ntt_ext(dl: torch.Tensor, khat_j: torch.Tensor) -> torch.Tensor:
+def ntt_ext(dl: torch.Tensor, khat_j: torch.Tensor,
+            out: torch.Tensor | None = None) -> torch.Tensor:
     """One step's external product.
 
     dl: int8 [3, B, (k+1)*N] digit limbs (``rotate_diff_decompose``);
     khat_j: int16 [2, k+1, (k+1)*8, N], one step of
     ``DeviceServerKeys.bsk_ntt64``.  Returns int64 [B, k+1, N]: the
-    external product mod 2^64 (u64 bits).
+    external product mod 2^64 (u64 bits); out: where to put it (no
+    allocation then).
 
     CPU tensors run ``ntt_ext_plain``; CUDA tensors launch the kernel
     (built at first use) and count the launch in ``ntt_ext.launches``.
     """
     _check(dl, khat_j)
-    if dl.device.type == "cpu":
-        return ntt_ext_plain(dl, khat_j)
-    if dl.device.type != "cuda":
-        raise ValueError(f"no NTT external-product kernel for {dl.device}")
-    lib = cuda_build.load("ntt_ext", _FUNCTIONS)
     _, B, _ = dl.shape
     kp1, N = br64.GLWE_ROWS, khat_j.shape[-1]
+    if out is not None:
+        cuda_build.check_out(out, (B, kp1, N), torch.int64, dl.device)
+    if dl.device.type == "cpu":
+        ext = ntt_ext_plain(dl, khat_j)
+        return ext if out is None else out.copy_(ext)
+    if dl.device.type != "cuda":
+        raise ValueError(f"no NTT external-product kernel for {dl.device}")
+    lib = _library(dl.device.index)
     tw = ntt.kernel_twiddles(N, str(dl.device))
-    out = torch.empty((B, kp1, N), dtype=torch.int64, device=dl.device)
+    if out is None:
+        out = torch.empty((B, kp1, N), dtype=torch.int64, device=dl.device)
     with torch.cuda.device(dl.device):
         err = lib.fhe_ntt_ext(
             dl.data_ptr(), khat_j.data_ptr(), tw.data_ptr(), out.data_ptr(),

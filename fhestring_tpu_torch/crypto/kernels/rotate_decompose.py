@@ -16,11 +16,15 @@ It is the exact-mode digit of ``blind_rotate64`` (``_digits`` and
 step-wise routes of ``crypto/pbs.py``: K5 feeds K3 (``ext_product``) or K4
 (``ntt_ext``).
 
-The kernel (``csrc/rotate_decompose.cu``) runs one thread per coefficient:
-a gather with the negacyclic sign, the u64 difference in ``uint64_t``, the
-rounding and the limb split.  What bounds it on an H100: device memory,
-16 bytes read and 3 written per coefficient; it is a few microseconds per
-step next to the external product that follows.
+The kernel (``csrc/rotate_decompose.cu``) runs one thread per 4
+neighbouring coefficients: 16-byte loads of the accumulator, a gather of the
+sources with the negacyclic sign, the u64 difference in ``uint64_t``, the
+rounding and the limb split, and one packed store per limb plane.  What
+bounds it on an H100: device memory, 16 bytes read and 3 written per
+coefficient.  At a request's batches that is a microsecond or two on the
+card, less than the host needs to start a launch, so the step loop
+(``crypto/pbs.py``) gives the wrapper its output buffer (``out=``: no
+allocation per step) and replays the captured launches as a CUDA graph.
 
 On a CPU tensor the wrapper runs the plain version; on a CUDA tensor it
 launches the kernel or raises.
@@ -38,7 +42,8 @@ from . import cuda_build
 _VP = ctypes.c_void_p
 _INT = ctypes.c_int
 _FUNCTIONS = {"fhe_rotate_decompose": ([_VP, _VP, _VP, _INT, _INT, _VP],
-                                       _INT)}
+                                       _INT),
+              "fhe_rotate_decompose_init": ([], _INT)}
 
 
 def build() -> str:
@@ -46,6 +51,17 @@ def build() -> str:
     Returns the path of the shared library."""
     cuda_build.load("rotate_decompose", _FUNCTIONS)
     return cuda_build.library_path("rotate_decompose")
+
+
+def _library(device_index: int) -> ctypes.CDLL:
+    return cuda_build.ready("rotate_decompose", _FUNCTIONS,
+                            "fhe_rotate_decompose_init", device_index)
+
+
+def prepare(device: torch.device) -> None:
+    """Everything a launch on that CUDA device needs that a stream capture
+    could not do: builds and loads the kernel."""
+    _library(device.index)
 
 
 def _check(acc: torch.Tensor, amounts: torch.Tensor) -> None:
@@ -77,26 +93,31 @@ def rotate_diff_decompose_plain(acc: torch.Tensor,
         br64.DIGIT_LIMBS, B, kp1 * N).to(torch.int8)
 
 
-def rotate_diff_decompose(acc: torch.Tensor,
-                          amounts: torch.Tensor) -> torch.Tensor:
+def rotate_diff_decompose(acc: torch.Tensor, amounts: torch.Tensor,
+                          out: torch.Tensor | None = None) -> torch.Tensor:
     """One step's digit limbs.
 
     acc: int64 [B, k+1, N] accumulator (u64 bits); amounts: int32 [B] in
-    [0, 2N).  Returns int8 [3, B, (k+1)*N].
+    [0, 2N).  Returns int8 [3, B, (k+1)*N]; out: where to put it (no
+    allocation then).
 
     CPU tensors run ``rotate_diff_decompose_plain``; CUDA tensors launch the
     kernel (built at first use) and count the launch in
     ``rotate_diff_decompose.launches``.
     """
     _check(acc, amounts)
+    B, kp1, N = acc.shape
+    shape = (br64.DIGIT_LIMBS, B, kp1 * N)
+    if out is not None:
+        cuda_build.check_out(out, shape, torch.int8, acc.device)
     if acc.device.type == "cpu":
-        return rotate_diff_decompose_plain(acc, amounts)
+        dl = rotate_diff_decompose_plain(acc, amounts)
+        return dl if out is None else out.copy_(dl)
     if acc.device.type != "cuda":
         raise ValueError(f"no rotate-decompose kernel for {acc.device}")
-    lib = cuda_build.load("rotate_decompose", _FUNCTIONS)
-    B, kp1, N = acc.shape
-    out = torch.empty((br64.DIGIT_LIMBS, B, kp1 * N), dtype=torch.int8,
-                      device=acc.device)
+    lib = _library(acc.device.index)
+    if out is None:
+        out = torch.empty(shape, dtype=torch.int8, device=acc.device)
     with torch.cuda.device(acc.device):
         err = lib.fhe_rotate_decompose(
             acc.data_ptr(), amounts.data_ptr(), out.data_ptr(), B, N,

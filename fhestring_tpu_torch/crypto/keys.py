@@ -18,11 +18,15 @@ device path reads:
   (``kernels/blind_rotate32.py``) or P = 8 limbs of the u64 value
   (``kernels/blind_rotate64.py``, whose step ``kernels/ntt_ext.py`` reads
   it too).  Packed unless ``with_ntt2=False``.
-- 64-bit bootstrap key limbs: int8 [n, R, k+1, 8, N], the 8 balanced byte
-  limbs of each u64 key value, for the step-wise external product
-  (``kernels/ext_product.py``).  This is the JAX ``bsk_limbs[..., :N]``;
-  the JAX package's doubling to 2N (and the kernel's to 4N) is a layout for
-  the TPU's lanes and is not kept.  PARAM_PROD: 48.6 MB.
+- 64-bit bootstrap key limbs: int8 [n, R, k+1, 8, 2N], for the step-wise
+  external product (``kernels/ext_product.py``): the 8 balanced byte-limb
+  planes of each key poly doubled with its negation, P = (K, -K), each
+  plane reversed: plane[i] = limb(P)[-i mod 2N].  The limbs of -K are those
+  of the negated u64 value (-(-128) is no int8).  Reversed, the 4
+  consecutive digit indices of one tensor-core fragment word are 4
+  ascending bytes.  Un-reversed (``doubled_limbs``) this is the JAX
+  ``bsk_limbs``; the JAX kernel's further doubling to 4N is a layout for
+  the TPU's lanes and is not kept.  PARAM_PROD: 97.3 MB.
 - LUT bank: doubled test polynomials, int64 torus [L, 2N].
 
 These replace the JAX package's ``crypto/keys.py`` layouts; the numpy
@@ -65,8 +69,8 @@ class DeviceServerKeys:
     # int16 [n, 2(prime), R, (k+1)*8, N]: NTT-domain bootstrap key of a
     # 64-bit-torus set, else None.
     bsk_ntt64: torch.Tensor | None = None
-    # int8 [n, R, k+1, 8, N]: byte limbs of a 64-bit-torus bootstrap key
-    # (the step-wise route), else None.
+    # int8 [n, R, k+1, 8, 2N]: reversed byte-limb planes of the doubled polys
+    # of a 64-bit-torus bootstrap key (the step-wise route), else None.
     bsk_limbs: torch.Tensor | None = None
 
     @property
@@ -137,16 +141,30 @@ def pack_ksk(ksk, p: CryptoParams, device) -> torch.Tensor:
 
 def pack_bsk_limbs(bsk, device) -> torch.Tensor:
     """u64 [n, R, k+1, N] key polys (numpy or int64 tensor) -> int8
-    [n, R, k+1, 8, N]: the balanced byte limbs of each value (limb 7's
-    carry dropped, as ``fhestring_tpu.crypto.keys.balanced_limbs_u64``)."""
+    [n, R, k+1, 8, 2N]: the balanced byte limbs (limb 7's carry dropped, as
+    ``fhestring_tpu.crypto.keys.balanced_limbs_u64``) of each poly doubled
+    with its negation, (K, -K mod 2^64), each plane reversed:
+    out[..., lb, i] = limb_lb of the doubled poly at -i mod 2N."""
     bsk = bsk if torch.is_tensor(bsk) else torus.from_numpy(bsk)
     n_steps, R, kp1, N = bsk.shape
-    out = torch.empty((n_steps, R, kp1, KEY_PLANES64, N), dtype=torch.int8,
+    out = torch.empty((n_steps, R, kp1, KEY_PLANES64, 2 * N), dtype=torch.int8,
                       device=device)
+    reverse = (-torch.arange(2 * N, device=device)) % (2 * N)
     for s in range(0, n_steps, _STEP_CHUNK):
-        limbs = balanced_limbs(bsk[s:s + _STEP_CHUNK].to(device), KEY_PLANES64)
-        out[s:s + _STEP_CHUNK] = limbs.movedim(-1, -2)
+        chunk = bsk[s:s + _STEP_CHUNK].to(device)
+        limbs = balanced_limbs(torch.cat([chunk, -chunk], dim=-1),
+                               KEY_PLANES64)              # [c, R, kp1, 2N, 8]
+        out[s:s + _STEP_CHUNK] = limbs.movedim(-1, -2)[..., reverse]
     return out
+
+
+def doubled_limbs(bsk_limbs: torch.Tensor) -> torch.Tensor:
+    """The planes of ``pack_bsk_limbs`` un-reversed, int8 [..., 8, 2N]: the
+    limbs of the doubled polys (K, -K) in coefficient order, the first N of
+    which are the limbs of K itself."""
+    two_n = bsk_limbs.shape[-1]
+    reverse = (-torch.arange(two_n, device=bsk_limbs.device)) % two_n
+    return bsk_limbs[..., reverse]
 
 
 def pack_server_keys(srv_or_arrays, device, params: CryptoParams | None = None,

@@ -24,10 +24,18 @@ step-wise route, one prologue and one external product per LWE step:
         acc = acc + ext_product(dl, bsk_limbs[j])        (K3, use_pallas)
                   | ntt_ext(dl, bsk_ntt64[j])            (K4, use_ntt2)
 
-Both step-wise routes are exact and give the bits of K2's exact mode.
+Both step-wise routes are exact and give the bits of K2's exact mode.  K3
+adds its product into the accumulator itself, so its route is 2 launches a
+step and K4's is 3.  On the card the n steps are captured once per (route,
+batch, key) into a CUDA graph over static buffers and replayed for every
+later batch of that shape: the host makes one graph launch instead of 2n
+or 3n kernel launches.  On the CPU the loop is a plain Python loop.
 """
 
 from __future__ import annotations
+
+import collections
+import dataclasses
 
 import torch
 
@@ -144,23 +152,118 @@ def sample_extract(acc: torch.Tensor, p: CryptoParams) -> torch.Tensor:
     return torch.cat([a.reshape(acc.shape[0], -1), acc[:, k, :1]], dim=-1)
 
 
+def _run_steps(acc: torch.Tensor, steps: torch.Tensor, key: torch.Tensor,
+               use_ntt2: bool, dl: torch.Tensor | None = None,
+               ext: torch.Tensor | None = None) -> torch.Tensor:
+    """The n steps, eagerly, updating acc in place: K5, then K3 adding into
+    acc, or K4 and acc += ext.  steps: int32 [n, B].  dl and ext: the
+    steps' buffers (allocated here if not given).  Nothing in the loop
+    allocates or reads back to the host, so it can be captured."""
+    B, kp1, N = acc.shape
+    if dl is None:
+        dl = torch.empty((br64.DIGIT_LIMBS, B, kp1 * N), dtype=torch.int8,
+                         device=acc.device)
+    if use_ntt2 and ext is None:
+        ext = torch.empty_like(acc)
+    for j in range(steps.shape[0]):
+        rd.rotate_diff_decompose(acc, steps[j], out=dl)
+        if use_ntt2:
+            acc.add_(ne.ntt_ext(dl, key[j], out=ext))
+        else:
+            ep.ext_product(dl, key[j], out=acc, accumulate=True)
+    return acc
+
+
+@dataclasses.dataclass
+class _StepGraph:
+    """The captured steps of one (route, batch, key) and their buffers."""
+    graph: torch.cuda.CUDAGraph
+    key: torch.Tensor          # kept alive: the graph holds its address
+    acc: torch.Tensor          # int64 [B, k+1, N], in and out
+    steps: torch.Tensor        # int32 [n, B]
+    # the steps' buffers: the graph writes them at every replay, so they
+    # must not go back to the allocator while it lives
+    scratch: tuple
+
+
+STEP_GRAPHS_KEPT = 16  # least recently used graphs beyond this are dropped
+_STEP_GRAPHS: collections.OrderedDict[tuple, _StepGraph] = (
+    collections.OrderedDict())
+
+
+def _capture_steps(shape: tuple, n: int, key: torch.Tensor,
+                   use_ntt2: bool) -> _StepGraph:
+    """Capture the n steps at accumulator shape [B, k+1, N] into a CUDA
+    graph over buffers of its own.  The kernels are built and loaded first
+    (a capture can do neither); no kernel runs during the capture, so the
+    wrappers' launch counts are put back after it."""
+    dev = key.device
+    rd.prepare(dev)
+    if use_ntt2:
+        ne.prepare(dev, shape[-1])
+    else:
+        ep.prepare(dev)
+    product = ne.ntt_ext if use_ntt2 else ep.ext_product
+    acc = torch.zeros(shape, dtype=torch.int64, device=dev)
+    steps = torch.zeros((n, shape[0]), dtype=torch.int32, device=dev)
+    dl = torch.empty((br64.DIGIT_LIMBS, shape[0], shape[1] * shape[2]),
+                     dtype=torch.int8, device=dev)
+    ext = torch.empty_like(acc) if use_ntt2 else None
+    graph = torch.cuda.CUDAGraph()
+    counts = rd.rotate_diff_decompose.launches, product.launches
+    try:
+        with torch.cuda.graph(graph):
+            _run_steps(acc, steps, key, use_ntt2, dl, ext)
+    finally:
+        rd.rotate_diff_decompose.launches, product.launches = counts
+    return _StepGraph(graph, key, acc, steps, (dl, ext))
+
+
+def _step_graph(shape: tuple, n: int, key: torch.Tensor,
+                use_ntt2: bool) -> _StepGraph:
+    """The cached graph of that accumulator shape, route and key tensor."""
+    ident = (use_ntt2, tuple(shape), n, key.device, key.data_ptr())
+    entry = _STEP_GRAPHS.get(ident)
+    if entry is None:
+        entry = _STEP_GRAPHS[ident] = _capture_steps(shape, n, key, use_ntt2)
+        while len(_STEP_GRAPHS) > STEP_GRAPHS_KEPT:
+            _STEP_GRAPHS.popitem(last=False)
+    _STEP_GRAPHS.move_to_end(ident)
+    return entry
+
+
+def _replay_steps(entry: _StepGraph, use_ntt2: bool) -> None:
+    """Replay the captured steps on the entry's buffers.  A replay runs no
+    wrapper, so it counts its kernel nodes itself: n launches of K5 and n
+    of the route's product kernel."""
+    entry.graph.replay()
+    n = entry.steps.shape[0]
+    rd.rotate_diff_decompose.launches += n
+    product = ne.ntt_ext if use_ntt2 else ep.ext_product
+    product.launches += n
+
+
 def _blind_rotate_stepwise(acc: torch.Tensor, amounts: torch.Tensor,
-                           keys: DeviceServerKeys,
-                           use_ntt2: bool) -> torch.Tensor:
-    """The step-wise 64-bit route: per step K5, then K4 (use_ntt2) or K3,
-    then acc += ext.  Nothing in the loop reads back to the host, so on the
-    card the 2n launches queue without a sync."""
+                           keys: DeviceServerKeys, use_ntt2: bool,
+                           graph: bool = True) -> torch.Tensor:
+    """The step-wise 64-bit route: per step K5, then K3 adding into the
+    accumulator or K4 and acc += ext.  On a CUDA device the steps are
+    replayed from a captured graph (graph=False: launched one by one, for
+    comparison); a failed capture or replay raises.  On the CPU the steps
+    run one by one."""
     key = keys.bsk_ntt64 if use_ntt2 else keys.bsk_limbs
     if key is None:
         raise ValueError("the step-wise route needs "
                          + ("bsk_ntt64: pack_server_keys(with_ntt2=True)"
                             if use_ntt2 else "bsk_limbs (a 64-bit set)"))
-    product = ne.ntt_ext if use_ntt2 else ep.ext_product
     steps = amounts.t().contiguous()                    # [n, B]
-    for j in range(steps.shape[0]):
-        dl = rd.rotate_diff_decompose(acc, steps[j])
-        acc = torus.add(acc, product(dl, key[j]))
-    return acc
+    if acc.device.type != "cuda" or not graph or acc.shape[0] == 0:
+        return _run_steps(acc.clone(), steps, key, use_ntt2)
+    entry = _step_graph(acc.shape, steps.shape[0], key, use_ntt2)
+    entry.acc.copy_(acc)
+    entry.steps.copy_(steps)
+    _replay_steps(entry, use_ntt2)
+    return entry.acc.clone()
 
 
 def blind_rotate(acc: torch.Tensor, lwe_2n: torch.Tensor,

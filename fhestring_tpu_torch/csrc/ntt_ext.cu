@@ -82,6 +82,15 @@ ntt_ext_kernel(const int8_t* __restrict__ dl,
 
 }  // namespace
 
+// Once per device, before the first launch (and before any stream capture):
+// loads the kernel and lets it use the shared memory of N = 2048.  Returns a
+// cudaError_t.
+extern "C" int fhe_ntt_ext_init() {
+  return static_cast<int>(cudaFuncSetAttribute(
+      ntt_ext_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      kOut * 2048 * (4 + 2)));
+}
+
 // dl: int8 [3, batch, 2 * n] digit limbs (natural coefficient order);
 // khat: u16 [2 primes, 2 digit rows, 16, n] (one step of the
 // blind_rotate64 key); tw: u32 [2 primes, 2 (fwd, inv), n, 2 (twiddle, its
@@ -95,10 +104,6 @@ extern "C" int fhe_ntt_ext(const void* dl, const void* khat, const void* tw,
   int log_n = 0;
   while ((1 << log_n) < n) ++log_n;
   const size_t smem = static_cast<size_t>(kOut) * n * (4 + 2);
-  cudaError_t err = cudaFuncSetAttribute(
-      ntt_ext_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
   if (batch == 0) return 0;
   ntt_ext_kernel<<<batch, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int8_t*>(dl), static_cast<const uint16_t*>(khat),

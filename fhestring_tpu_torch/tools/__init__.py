@@ -5,6 +5,7 @@ and prints the card's name and power limit beside its numbers."""
 from __future__ import annotations
 
 import subprocess
+import time
 
 import torch
 
@@ -29,6 +30,40 @@ def cuda_ms(fn, repeat: int = 2) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / repeat
+
+
+def graph_ms(fn, launches: int = 20, repeat: int = 5) -> float:
+    """Device milliseconds of one fn(): `launches` calls captured into a
+    CUDA graph, the mean over `repeat` replays after a warm-up one.  fn must
+    allocate nothing.  The step-wise wrappers' launch counts are put back
+    afterwards: launches made to time a kernel are none of a served
+    path."""
+    from ..crypto.kernels import ext_product, ntt_ext, rotate_decompose
+
+    kernels = (rotate_decompose.rotate_diff_decompose,
+               ext_product.ext_product, ntt_ext.ntt_ext)
+    counts = [k.launches for k in kernels]
+    fn()  # loads the kernels: a capture cannot
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(launches):
+            fn()
+    ms = cuda_ms(graph.replay, repeat) / launches
+    for kernel, count in zip(kernels, counts):
+        kernel.launches = count
+    return ms
+
+
+def wall_ms(fn, repeat: int = 20) -> float:
+    """Host milliseconds of one fn() launched eagerly, `repeat` calls back to
+    back after a warm-up and a synchronise at the end."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(repeat):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / repeat
 
 
 def random_khat(gen, n_steps: int, digit_polys: int, out_polys: int, n: int):

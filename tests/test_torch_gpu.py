@@ -419,8 +419,8 @@ def test_stepwise_kernels_match_plain(stepwise, B, n_steps, n):
     """n_steps of K5, then K3 and K4 on its digits, each against its plain
     version, with K3 equal to K4 (both keys hold the same u64 values); the
     accumulator advances by the product, as in pbs._blind_rotate_stepwise.
-    Step 0 takes the amounts 0, N and 2N - 1.  At N=2048 on 132 SMs, K3
-    runs 1 item per block up to B = 32 and 4 from B = 33."""
+    Step 0 takes the amounts 0, N and 2N - 1.  At N=2048 K3 takes 1, 2 or
+    4 groups of 8 items per block as the batch grows (``pick_body``)."""
     gen = torch.Generator().manual_seed(B * n + n_steps)
     acc = torch.randint(-2**63, 2**63 - 1, (B, 2, n), dtype=torch.int64,
                         generator=gen).to(stepwise)
@@ -446,22 +446,101 @@ def test_stepwise_kernels_match_plain(stepwise, B, n_steps, n):
     assert _launches() == [b + n_steps for b in before]
 
 
-@pytest.mark.parametrize("items", ep.ITEMS)
-@pytest.mark.parametrize("n", [256, 2048])
-def test_ext_product_every_body_matches_plain(stepwise, n, items):
-    """Each K3 body (items per block) against the plain version at B=99,
-    which leaves the 4-item body's last block partly filled."""
-    gen = torch.Generator().manual_seed(n + items)
+def _k3_bodies(n):
+    """Every groups at the smallest and the largest chunk that fits, each
+    unsplit, split in two and split all the way."""
+    out = []
+    for groups in ep.GROUPS:
+        fits = [c for c in (128, 256, 512, 1024, 2048)
+                if c <= n and ep.shared_memory(groups, c) <= ep.SHARED_MEMORY]
+        for chunk in {fits[0], fits[-1]}:
+            out += [(groups, chunk, s) for s in {1, 2, 2 * n // chunk}]
+    return out
+
+
+@pytest.mark.parametrize("accumulate", [False, True],
+                         ids=["fresh", "accumulate"])
+@pytest.mark.parametrize("n", [128, 256, 2048])
+def test_ext_product_every_body_matches_plain(stepwise, n, accumulate):
+    """Each K3 body (groups of 8 items per block, chunk of digit indices,
+    blocks that split them) against the plain version at B=99, which
+    leaves the last group of every body partly filled; returning a fresh
+    tensor, or adding into a given accumulator."""
+    gen = torch.Generator().manual_seed(n)
     dl = torch.randint(-128, 128, (3, 99, 2 * n), dtype=torch.int8,
                        generator=gen).to(stepwise)
     bsk = torch.randint(-2**63, 2**63 - 1, (1, 2, 2, n), dtype=torch.int64,
                         generator=gen)
+    start = torch.randint(-2**63, 2**63 - 1, (99, 2, n), dtype=torch.int64,
+                          generator=gen).to(stepwise)
     limbs = keys.pack_bsk_limbs(bsk, stepwise)[0]
+    want = ep.ext_product_plain(dl, limbs)
+    bodies = _k3_bodies(n)
     before = ep.ext_product.launches
-    got = ep.ext_product(dl, limbs, items=items)
+    for body in bodies:
+        if accumulate:
+            got = ep.ext_product(dl, limbs, out=start.clone(),
+                                 accumulate=True, body=body)
+            assert torch.equal(got, start + want), body
+        else:
+            assert torch.equal(ep.ext_product(dl, limbs, body=body),
+                               want), body
     torch.cuda.synchronize()
-    assert ep.ext_product.launches == before + 1
-    assert torch.equal(got, ep.ext_product_plain(dl, limbs))
+    assert ep.ext_product.launches == before + len(bodies)
+
+
+@pytest.mark.parametrize("B", [1, 5, 33, 67])
+@pytest.mark.parametrize("n", [128, 2048])
+def test_ext_product_matches_plain_at_the_worst_case(stepwise, n, B):
+    """The picked body at B in {1, 5, 33, 67}: random inputs, and digit
+    limbs and key limbs all -128, the largest int32 planes there are
+    (2^27.6 at N=2048)."""
+    gen = torch.Generator().manual_seed(n + B)
+    dl = torch.randint(-128, 128, (3, B, 2 * n), dtype=torch.int8,
+                       generator=gen).to(stepwise)
+    bsk = torch.randint(-2**63, 2**63 - 1, (2, 2, 2, n), dtype=torch.int64,
+                        generator=gen)
+    all_min = (-128 * sum(256**i for i in range(8))) % (1 << 64)
+    bsk[1] = torus.from_numpy(np.array([all_min], np.uint64))
+    limbs = keys.pack_bsk_limbs(bsk, stepwise)
+    assert bool((keys.doubled_limbs(limbs[1])[..., :n] == -128).all())
+    assert torch.equal(ep.ext_product(dl, limbs[0]),
+                       ep.ext_product_plain(dl, limbs[0]))
+    dl.fill_(-128)
+    assert torch.equal(ep.ext_product(dl, limbs[1]),
+                       ep.ext_product_plain(dl, limbs[1]))
+
+
+@pytest.mark.parametrize("B", [1, 5, 33])
+@pytest.mark.parametrize("route", [False, True], ids=["k3", "k4"])
+def test_graph_replay_equals_the_eager_loop(stepwise, key_material64, B,
+                                            route):
+    """Two different inputs at one B through one cached graph, each equal
+    to the eager loop on the card and to the CPU loop (a stale static
+    buffer would show on the second); the replay counts n launches of K5
+    and of the route's product kernel, the capture none."""
+    srv, dev = key_material64
+    cpu = keys.pack_server_keys(srv, "cpu", params=P64)
+    n, N = P64.lwe_dimension, P64.polynomial_size
+    product = ne.ntt_ext if route else ep.ext_product
+    gen = torch.Generator().manual_seed(B)
+    graphs = len(pbs._STEP_GRAPHS)
+    for turn in range(2):
+        acc = torch.randint(-2**63, 2**63 - 1, (B, 2, N), dtype=torch.int64,
+                            generator=gen)
+        amt = torch.randint(0, 2 * N, (B, n), dtype=torch.int32,
+                            generator=gen)
+        before = (rd.rotate_diff_decompose.launches, product.launches)
+        got = pbs._blind_rotate_stepwise(acc.to(stepwise), amt.to(stepwise),
+                                         dev, route)
+        assert (rd.rotate_diff_decompose.launches,
+                product.launches) == (before[0] + n, before[1] + n)
+        eager = pbs._blind_rotate_stepwise(acc.to(stepwise), amt.to(stepwise),
+                                           dev, route, graph=False)
+        assert torch.equal(got, eager)
+        assert torch.equal(got.cpu(),
+                           pbs._blind_rotate_stepwise(acc, amt, cpu, route))
+        assert len(pbs._STEP_GRAPHS) == min(graphs + 1, pbs.STEP_GRAPHS_KEPT)
 
 
 @pytest.mark.parametrize("n", [256, 2048])

@@ -120,9 +120,9 @@ def test_served_without_ntt_key_matches_jax_engine(served, monkeypatch,
     calls = {"k5": 0, "k3": 0}
 
     def spy(name, fn):
-        def run(*args):
+        def run(*args, **kwargs):
             calls[name] += 1
-            return fn(*args)
+            return fn(*args, **kwargs)
         return run
 
     def refuse(*args, **kwargs):
@@ -206,3 +206,131 @@ def test_get_server_key_packs_the_ntt_key_unless_told_not_to(params):
         dev = ck.get_server_key(with_ntt2=with_ntt2).backend.sc.keys
         assert (getattr(dev, ntt_name) is not None) == packed
         assert (dev.bsk_limbs is not None) == (params.torus_bits == 64)
+
+
+# ---------------------------------------------------------------------------
+# the step loop: eager on the CPU, a replayed CUDA graph on the card
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("route", list(ROUTES))
+def test_cpu_route_never_builds_a_graph(setup, monkeypatch, route):
+    """On CPU tensors the steps run one by one: no capture, no replay, and
+    still the JAX package's bits."""
+    p, _, _, dev, _, cts, jax_out = setup
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("graph machinery reached on the CPU")
+
+    for name in ("_step_graph", "_capture_steps", "_replay_steps"):
+        monkeypatch.setattr(pbs, name, refuse)
+    np.testing.assert_array_equal(_pbs(cts, dev, **ROUTES[route]), jax_out)
+    assert not pbs._STEP_GRAPHS
+
+
+@pytest.mark.parametrize("route", list(ROUTES))
+def test_stepwise_route_leaves_its_input_accumulator_alone(route):
+    """The loop updates an accumulator in place; the caller's tensor is not
+    that accumulator."""
+    p = PARAM_TEST_ZERO_NOISE
+    _, srv = ref.keygen(p, np.random.default_rng(5))
+    dev = keys.pack_server_keys(srv, "cpu", params=p)
+    rng = np.random.default_rng(6)
+    acc = torus.from_numpy(rng.integers(0, 1 << 64, dtype=np.uint64,
+                                        size=(3, 2, p.polynomial_size)))
+    amounts = torch.from_numpy(rng.integers(
+        0, 2 * p.polynomial_size, size=(3, p.lwe_dimension)).astype(np.int32))
+    before = acc.clone()
+    out = pbs._blind_rotate_stepwise(acc, amounts, dev, route == "k4")
+    assert torch.equal(acc, before) and not torch.equal(out, before)
+    want = br64.blind_rotate64(acc, amounts, dev.bsk_ntt64)
+    assert torch.equal(out, want)
+
+
+class _FakeGraph:
+    def __init__(self):
+        self.replays = 0
+
+    def replay(self):
+        self.replays += 1
+
+
+@pytest.mark.parametrize("route", list(ROUTES))
+def test_replay_counts_n_launches_per_kernel(monkeypatch, route):
+    """A replay runs no wrapper, so ``_replay_steps`` adds the graph's n
+    kernel nodes of K5 and of the route's product kernel to their counts,
+    and nothing to the other product kernel's."""
+    from fhestring_tpu_torch.crypto.kernels import ntt_ext as ne
+
+    n, batch = 7, 3
+    graph = _FakeGraph()
+    entry = pbs._StepGraph(graph=graph, key=torch.zeros(1),
+                           acc=torch.zeros((batch, 2, 64), dtype=torch.int64),
+                           steps=torch.zeros((n, batch), dtype=torch.int32),
+                           scratch=())
+    kernels = (rd.rotate_diff_decompose, ep.ext_product, ne.ntt_ext)
+    for kernel in kernels:
+        monkeypatch.setattr(kernel, "launches", 100)
+    pbs._replay_steps(entry, use_ntt2=route == "k4")
+    assert graph.replays == 1
+    assert [k.launches - 100 for k in kernels] == (
+        [n, 0, n] if route == "k4" else [n, n, 0])
+
+
+def test_step_graphs_are_cached_by_shape_route_and_key(monkeypatch):
+    """One capture per (route, accumulator shape, steps, key tensor); the
+    least recently used graph goes once more than STEP_GRAPHS_KEPT are
+    held."""
+    captured = []
+
+    def fake_capture(shape, n, key, use_ntt2):
+        captured.append((tuple(shape), n, use_ntt2))
+        return pbs._StepGraph(_FakeGraph(), key, torch.zeros(1),
+                              torch.zeros(1), ())
+
+    monkeypatch.setattr(pbs, "_capture_steps", fake_capture)
+    monkeypatch.setattr(pbs, "_STEP_GRAPHS", type(pbs._STEP_GRAPHS)())
+    monkeypatch.setattr(pbs, "STEP_GRAPHS_KEPT", 3)
+    key, other = torch.zeros(4), torch.zeros(4)
+    first = pbs._step_graph((5, 2, 64), 7, key, False)
+    assert pbs._step_graph((5, 2, 64), 7, key, False) is first
+    assert pbs._step_graph((5, 2, 64), 7, key, True) is not first
+    assert pbs._step_graph((15, 2, 64), 7, key, False) is not first
+    assert len(captured) == 3
+    assert pbs._step_graph((5, 2, 64), 7, key, False) is first   # now newest
+    pbs._step_graph((5, 2, 64), 7, other, False)                 # a 4th
+    assert len(captured) == 4 and len(pbs._STEP_GRAPHS) == 3
+    assert pbs._step_graph((5, 2, 64), 7, key, False) is first   # was kept
+    pbs._step_graph((5, 2, 64), 7, key, True)                    # was dropped
+    assert len(captured) == 5
+
+
+@pytest.mark.parametrize("kernel", ["k5", "k4"])
+def test_out_forms_equal_the_returning_forms(kernel):
+    """``out=`` of K5 and K4 (the loop's buffers): the same bits, written
+    into the given tensor; a wrong buffer is refused.  (K3's ``out=`` and
+    ``accumulate=`` are held in test_torch_ext_product.py.)"""
+    from fhestring_tpu_torch.crypto.kernels import ntt_ext as ne
+
+    n, batch = 128, 3
+    rng = np.random.default_rng(8)
+    acc = torus.from_numpy(rng.integers(0, 1 << 64, size=(batch, 2, n),
+                                        dtype=np.uint64))
+    amounts = torch.from_numpy(rng.integers(0, 2 * n, size=batch)
+                               .astype(np.int32))
+    dl = rd.rotate_diff_decompose(acc, amounts)
+    if kernel == "k5":
+        out = torch.full_like(dl, 7)
+        assert rd.rotate_diff_decompose(acc, amounts, out=out) is out
+        assert torch.equal(out, dl)
+        bad = torch.zeros((3, batch, n), dtype=torch.int8)
+        with pytest.raises(ValueError):
+            rd.rotate_diff_decompose(acc, amounts, out=bad)
+    else:
+        bsk = rng.integers(0, 1 << 64, size=(1, 2, 2, n), dtype=np.uint64)
+        khat = keys.pack_bsk_ntt(bsk, "cpu", keys.KEY_PLANES64)[0]
+        want = ne.ntt_ext(dl, khat)
+        out = torch.full_like(want, 7)
+        assert ne.ntt_ext(dl, khat, out=out) is out
+        assert torch.equal(out, want)
+        with pytest.raises(ValueError):
+            ne.ntt_ext(dl, khat, out=out.to(torch.int32))
