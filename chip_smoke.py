@@ -2,7 +2,7 @@
 """Smoke run of the PyTorch/CUDA port (fhestring_tpu_torch) on one GPU.
 
 Drives the port's served path on the card at two full-width parameter
-sets, each phase printing one line:
+sets, then the ported CLI, each phase printing one line:
 
 1. device: name, count, ``nvidia-smi`` name and power limit;
 2. build of all five kernels from csrc/ (one nvcc each, in parallel),
@@ -22,8 +22,8 @@ gadget 2^8 x 3; kernel blind_rotate32):
    to table[m];
 6. requests "hello world" x "ello" through contains, contains_clear,
    to_upper, len, eq and find: ClientKey -> ServerKey -> decrypt equals
-   Python's str, PBS counts equal benchmarks/methods_turbo_r5c.jsonl, and
-   the kernel's launches (reset just before this phase) equal the PBS
+   Python's str, PBS counts equal TURBO_COUNTS (for these six the rows of
+   benchmarks/methods_turbo_r5c.jsonl), and the kernel's launches (reset just before this phase) equal the PBS
    batches; each request's wall time and how many batches ran each body;
 7. throughput: PBS/s of pbs_batch at B=2048, and kernel against plain
    version at the largest B whose plain run is predicted to take at most
@@ -48,24 +48,44 @@ The step-wise 64-bit route at PARAM_PROD (one launch of rotate_decompose,
 K5, and one of ext_product, K3, or ntt_ext, K4, per LWE step; exact), on
 the phase-8 keys and on a server packed with ``with_ntt2=False``:
 
-13. K5, K3 and K4 each against its plain version at B=8 over a few steps
-    of the prod key (step 0 with the amounts 0, N and 2N - 1), bit-exact,
-    K3 also adding into the accumulator (acc + ext); each kernel's device
-    time (20 launches captured into a CUDA graph) and, for K5 and K3, the
-    eager wall time a launch; then on step 0 at each B of SWEEP_B: K3 in
-    the picked body and in every body of K3_SWEEP_BODIES, fresh and
-    accumulating, against its plain version and against K4;
+13. K5, K3 and K4 each against its plain version at B=8 over 4 steps of
+    the prod key (step 0 with the amounts 0, N and 2N - 1), bit-exact, K3
+    also adding into the accumulator (acc + ext); K4 in each of its bodies
+    (1 block an item, clusters of 2 and 4), fresh and accumulating; K3's
+    step body (digits made inside the launch, three rotating accumulators)
+    over the same 4 steps against its plain version and against K5 + K3,
+    and K3 launched overlapped behind K5; each kernel's device time (20
+    launches captured into a CUDA graph), K4's per body, a step of the K3
+    route in its three forms, and for K5 and K3 the eager wall time a
+    launch; then on step 0 at each B of SWEEP_B: K3 in the picked body and
+    in every body of K3_SWEEP_BODIES, fresh, accumulating and as the step
+    body, and K4 in its three bodies, against the plain version;
 14. pbs_batch of B=256 through the K3 route and through the K4 route:
     every output decrypts to table[m] and both equal pbs_batch with K2 in
     its exact mode, bit for bit; K4's launches are counted over its run;
-    then the step loop's graph: two different batches of one B through
-    one cached graph, and a second B, each with the bits of the eager
-    loop and of K2's exact mode, on both routes;
-15. the six requests through the ``with_ntt2=False`` server (the K5 + K3
-    route): outputs equal Python's str, PBS counts equal PROD_COUNTS, K5
-    and K3 launch n times per PBS batch and K2 never; each request's wall
-    time and the share of it the card spent in the replayed step graphs;
+    then the step loop's graph on the K4 route and in each form of the K3
+    route (K5 then K3; K3 overlapped behind K5; K3's step body): two
+    different batches of one B through one cached graph, and a second B,
+    each with the bits of the eager loop and of K2's exact mode, a replay
+    counting n launches of K5 and of the product kernel (the step form: n
+    of K3's step body and none of K5); the form the port takes must be the
+    fastest of the three within 3%;
+15. the six requests through the ``with_ntt2=False`` server (the K3 route
+    in the form the port takes): outputs equal Python's str, PBS counts
+    equal PROD_COUNTS, K5 and K3 launch n times per PBS batch and K2 never;
+    each request's wall time and the share of it the card spent in the
+    replayed step graphs;
 16. PBS/s of pbs_batch through both routes at B=STEPWISE_B.
+
+The ported CLI (``fhestring_tpu_torch.cli``), which makes its own keys:
+
+17. ``--params turbo --device cuda --metrics`` with the arguments of
+    benchmarks/methods.py: all 52 method variants pass against Python's
+    str and each row's (PBS, batches) equals TURBO_COUNTS, its PBS also
+    the row of benchmarks/methods_turbo_r5c.jsonl;
+18. the same at ``--params prod`` against the 52 rows of PROD_COUNTS; on a
+    card so slow that this would pass 700 s since the start, the 20
+    variants of CLI_PROD_SUBSET.
 
 Then one JSON line describing the five kernels, each with its time beside
 its bound: the least time the card could take, the larger of its bytes over
@@ -80,6 +100,7 @@ non-zero.  Usage (from the repository root):
 
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -87,14 +108,63 @@ import time
 ROOT = os.path.dirname(os.path.abspath(__file__))
 S, PAT = "hello world", "ello"
 PLAIN_SECONDS = 60.0  # allowance for a plain version's throughput run
-# (PBS items, PBS batches) of each request at PARAM_PROD.  They depend only
-# on the string lengths and the set's noise budget (PROD_NOISE_BUDGET), so
-# tests/test_torch_slice.py holds this table equal to the JAX engine's
+# (PBS items, PBS batches) of each of the CLI's 52 method variants on S and
+# PAT (n = 2, from "o", to "0") at PARAM_PROD.  They depend only on the
+# string lengths and the set's noise budget (PROD_NOISE_BUDGET), so
+# tests/test_torch_cli_q64.py holds this table equal to the JAX engine's
 # counts at PARAM_TEST_ZERO_NOISE, which has the same budget.
 PROD_NOISE_BUDGET = 34.0
-PROD_COUNTS = {"Contains": (194, 5), "ContainsClear": (194, 5),
-               "ToUpper": (36, 3), "Len": (38, 5), "Eq": (131, 25),
-               "Find": (239, 13)}
+PROD_COUNTS = {
+    "Contains": (194, 5), "ContainsClear": (194, 5), "EndsWith": (365, 15),
+    "EndsWithClear": (365, 15), "EqIgnoreCase": (330, 37), "Find": (239, 13),
+    "FindClear": (239, 13), "IsEmpty": (41, 5), "Len": (38, 5),
+    "Repeat": (24887, 75), "RepeatClear": (1796, 37), "Replace": (810, 23),
+    "ReplaceClear": (810, 23), "ReplaceN": (936, 29),
+    "ReplaceNClear": (936, 29), "Rfind": (239, 13), "RfindClear": (239, 13),
+    "Rsplit": (14954, 223), "RsplitClear": (14954, 223),
+    "RsplitOnce": (29441, 400), "RsplitOnceClear": (29441, 400),
+    "RsplitN": (29441, 400), "RsplitNClear": (29441, 400),
+    "RsplitTerminator": (18061, 240), "RsplitTerminatorClear": (18061, 240),
+    "Split": (14954, 223), "SplitClear": (14954, 223),
+    "SplitAsciiWhitespace": (8897, 136), "SplitInclusive": (10690, 218),
+    "SplitInclusiveClear": (10690, 218), "SplitTerminator": (18061, 240),
+    "SplitTerminatorClear": (18061, 240), "SplitN": (29441, 400),
+    "SplitNClear": (29441, 400), "StartsWith": (25, 4),
+    "StartsWithClear": (25, 4), "StripPrefix": (647, 24),
+    "StripPrefixClear": (647, 24), "StripSuffix": (423, 26),
+    "StripSuffixClear": (423, 26), "ToLower": (36, 3), "ToUpper": (36, 3),
+    "Trim": (966, 43), "TrimEnd": (180, 12), "TrimStart": (786, 31),
+    "Concatenate": (1355, 37), "Lt": (189, 49), "Le": (189, 49),
+    "Gt": (189, 49), "Ge": (189, 49), "Eq": (131, 25), "Ne": (131, 25),
+}
+# The same at the turbo set's budget (192, as PARAM_TEST32_ZERO_NOISE; held
+# equal to the JAX engine by tests/test_torch_cli_q32.py): 279,080 PBS, the
+# items of benchmarks/methods_turbo_r5c.jsonl row by row, in 5,408 batches
+# (that table lists 5,444: the JAX engine as it stands makes up to 2 fewer
+# in 28 rows).
+TURBO_COUNTS = {
+    "Contains": (194, 5), "ContainsClear": (194, 5), "EndsWith": (365, 15),
+    "EndsWithClear": (365, 15), "EqIgnoreCase": (182, 31), "Find": (239, 13),
+    "FindClear": (239, 13), "IsEmpty": (41, 5), "Len": (38, 5),
+    "Repeat": (20087, 65), "RepeatClear": (1316, 29), "Replace": (615, 17),
+    "ReplaceClear": (615, 17), "ReplaceN": (741, 23),
+    "ReplaceNClear": (741, 23), "Rfind": (239, 13), "RfindClear": (239, 13),
+    "Rsplit": (12224, 217), "RsplitClear": (12224, 217),
+    "RsplitOnce": (20016, 384), "RsplitOnceClear": (20016, 384),
+    "RsplitN": (20016, 384), "RsplitNClear": (20016, 384),
+    "RsplitTerminator": (13771, 231), "RsplitTerminatorClear": (13771, 231),
+    "Split": (12224, 217), "SplitClear": (12224, 217),
+    "SplitAsciiWhitespace": (6737, 130), "SplitInclusive": (8155, 212),
+    "SplitInclusiveClear": (8155, 212), "SplitTerminator": (13771, 231),
+    "SplitTerminatorClear": (13771, 231), "SplitN": (20016, 384),
+    "SplitNClear": (20016, 384), "StartsWith": (25, 4),
+    "StartsWithClear": (25, 4), "StripPrefix": (467, 18),
+    "StripPrefixClear": (467, 18), "StripSuffix": (423, 26),
+    "StripSuffixClear": (423, 26), "ToLower": (36, 3), "ToUpper": (36, 3),
+    "Trim": (786, 37), "TrimEnd": (180, 12), "TrimStart": (606, 25),
+    "Concatenate": (1015, 29), "Lt": (189, 49), "Le": (189, 49),
+    "Gt": (189, 49), "Ge": (189, 49), "Eq": (131, 25), "Ne": (131, 25),
+}
 TABLE = [(7 * x + 3) % 16 for x in range(16)]
 STEPWISE_B = 2048  # batch of the step-wise routes' throughput (phase 16)
 # Batches of phase 13's sweep: at N=2048 ext_product's pick_body takes 1, 1,
@@ -427,16 +497,21 @@ def stepwise_kernels(dkeys, phase, steps=4, batch=8):
     """K5, K3 and K4 against their plain versions over `steps` steps of
     the prod key at B=batch, the accumulator advancing by K3's product
     (added by K3 itself, and held against acc + ext); step 0 takes the
-    amounts 0, N and 2N - 1.  Returns {name: (max |diff|, kernel ms, plain
-    ms)}, the times of step 0: the kernel's device time (``tools.graph_ms``:
-    GRAPH_LAUNCHES launches captured into a CUDA graph; timing launches are
-    not counted), the plain version's one run after a warm-up."""
+    amounts 0, N and 2N - 1.  K4 in each of its bodies, fresh and adding
+    into the accumulator.  K3's step body runs the same steps over three
+    rotating buffers and is held, step by step, against its plain version
+    and against K5 + K3; so is K3 launched overlapped behind K5.  Returns
+    {name: (max |diff|, kernel ms, plain ms)}, the times of step 0: the
+    kernel's device time (``tools.graph_ms``: GRAPH_LAUNCHES launches
+    captured into a CUDA graph; timing launches are not counted), the plain
+    version's one run after a warm-up."""
     import torch
 
     from fhestring_tpu_torch import torus
     from fhestring_tpu_torch.crypto.kernels import ext_product as ep
     from fhestring_tpu_torch.crypto.kernels import ntt_ext as ne
     from fhestring_tpu_torch.crypto.kernels import rotate_decompose as rd
+    from fhestring_tpu_torch.crypto.kernels.cluster import CLUSTERS
     from fhestring_tpu_torch.tools import graph_ms, wall_ms
 
     dev = dkeys.bsk_limbs.device
@@ -448,7 +523,10 @@ def stepwise_kernels(dkeys, phase, steps=4, batch=8):
                         generator=gen)
     amt[0, :3] = torch.tensor([0, N, 2 * N - 1], dtype=torch.int32)
     amt = amt.to(dev)
-    result, wall = {}, {}
+    # the step body's three buffers: the third starts dirty
+    bufs = [acc.clone(), torch.zeros_like(acc), torch.full_like(acc, 7)]
+    overlapped = acc.clone()
+    result, wall, step_ms, k4_ms = {}, {}, {}, {}
     for j in range(steps):
         a, limbs, khat = amt[j], dkeys.bsk_limbs[j], dkeys.bsk_ntt64[j]
         dl = rd.rotate_diff_decompose(acc, a)
@@ -467,7 +545,7 @@ def stepwise_kernels(dkeys, phase, steps=4, batch=8):
             "ntt_ext": (
                 lambda: ne.ntt_ext(dl, khat),
                 lambda: ne.ntt_ext_plain(dl, khat),
-                lambda: ne.ntt_ext(dl, khat, out=ext_out)),
+                lambda: ne.ntt_ext(dl, khat, out=ext_out, accumulate=True)),
         }
         outs = {}
         for name, (kernel, plain, looped) in trio.items():
@@ -490,20 +568,77 @@ def stepwise_kernels(dkeys, phase, steps=4, batch=8):
             outs[name] = got
         if not torch.equal(outs["ext_product"], outs["ntt_ext"]):
             fail(f"ext_product and ntt_ext differ at step {j}")
+        for c in CLUSTERS:      # every body of K4, fresh and accumulating
+            fresh = ne.ntt_ext(dl, khat, cluster=c)
+            added = ne.ntt_ext(dl, khat, out=acc.clone(), accumulate=True,
+                               cluster=c)
+            if not (torch.equal(fresh, outs["ext_product"])
+                    and torch.equal(added, torus.add(acc, fresh))):
+                fail(f"ntt_ext<{c}> differs from its plain version or from "
+                     f"ext_product at step {j}")
+            if j == 0:
+                k4_ms[c] = graph_ms(lambda: ne.ntt_ext(
+                    dl, khat, out=ext_out, accumulate=True, cluster=c),
+                    GRAPH_LAUNCHES)
         want = torus.add(acc, outs["ext_product"])
+        # the step's three forms, each from the accumulator before it
+        src, dst, nxt = (bufs[(j + k) % 3] for k in range(3))
+        plain_step = ep.ext_product_step_plain(src, a, limbs)
+        ep.ext_product_step(src, a, limbs, out=dst, zero=nxt)
+        rd.rotate_diff_decompose(overlapped, a, out=dl_out)
+        ep.ext_product(dl_out, limbs, out=overlapped, accumulate=True,
+                       overlap=True)
         acc = ep.ext_product(dl, limbs, out=acc, accumulate=True)
         if not torch.equal(acc, want):
             fail(f"ext_product(accumulate=True) differs from acc + ext at "
                  f"step {j}")
+        err = max(max_abs_err(dst, plain_step), max_abs_err(dst, acc))
+        if err or nxt.any().item():
+            fail(f"ext_product's step body differs from its plain version or "
+                 f"from K5 + K3 at step {j} (max |diff| {err}), or left its "
+                 f"third buffer dirty")
+        if not torch.equal(overlapped, acc):
+            fail(f"ext_product launched overlapped differs at step {j}")
+    # one step's device time in each form of the K3 route, at step 0
+    a, limbs = amt[0], dkeys.bsk_limbs[0]
+    turn = [0]
+
+    def step_form():
+        j = turn[0]
+        turn[0] += 1
+        ep.ext_product_step(bufs[j % 3], a, limbs, out=bufs[(j + 1) % 3],
+                            zero=bufs[(j + 2) % 3])
+
+    def two_kernels(overlap):
+        rd.rotate_diff_decompose(acc, a, out=dl_out)
+        ep.ext_product(dl_out, limbs, out=acc, accumulate=True,
+                       overlap=overlap)
+
+    step_ms = {"K5 then K3": graph_ms(lambda: two_kernels(False),
+                                      GRAPH_LAUNCHES),
+               "K3 overlapped behind K5": graph_ms(lambda: two_kernels(True),
+                                                   GRAPH_LAUNCHES),
+               "K3's step body": graph_ms(step_form, 3 * 7)}
     print(f"phase {phase} step-wise kernels vs plain: B={batch} N={N}, "
-          f"{steps} steps of the prod key, bit-exact, K3 = K4, K3 "
-          f"accumulating = acc + ext; device time of a launch (a graph of "
+          f"{steps} steps of the prod key, bit-exact, K3 = K4 in every body "
+          f"of K4, K3 accumulating = acc + ext, K3's step body over three "
+          f"buffers = its plain version = K5 + K3, K3 overlapped = K5 + K3; "
+          f"device time of a launch (a graph of "
           f"{GRAPH_LAUNCHES}): " + "; ".join(
               f"{name} kernel {ms:.4f} ms, plain {plain_ms:.3f} ms "
               f"({plain_ms / ms:.1f}x)"
               for name, (_, ms, plain_ms) in result.items())
+          + "; ntt_ext by body " + ", ".join(
+              f"<{c}> {ms:.4f} ms" for c, ms in k4_ms.items())
+          + f" (picked <{ne.pick_cluster(batch, N, dev.index or 0)}>)"
+          + "; a step of the K3 route: " + ", ".join(
+              f"{name} {ms:.4f} ms" for name, ms in step_ms.items())
           + "; eager wall time of a launch: " + ", ".join(
               f"{name} {ms:.4f} ms" for name, ms in wall.items()))
+    picked = ne.pick_cluster(batch, N, dev.index or 0)
+    if k4_ms[picked] > 1.006 * min(k4_ms.values()):
+        fail(f"ntt_ext picks body <{picked}> at B={batch}, "
+             f"{k4_ms[picked]:.4f} ms, slower than {k4_ms}")
     return result
 
 
@@ -511,12 +646,15 @@ def stepwise_batches(dkeys, phase):
     """K5, K3 and K4 against their plain versions on step 0 of the prod key
     at each B of SWEEP_B: K3 in the body ``pick_body`` takes and in every
     body of K3_SWEEP_BODIES, returning a fresh tensor and adding into an
-    accumulator, all equal to the plain version and so to K4."""
+    accumulator, and as its step body (digits made in the launch) in those
+    bodies; K4 in each of its bodies, fresh and accumulating; all equal to
+    the plain version."""
     import torch
 
     from fhestring_tpu_torch.crypto.kernels import ext_product as ep
     from fhestring_tpu_torch.crypto.kernels import ntt_ext as ne
     from fhestring_tpu_torch.crypto.kernels import rotate_decompose as rd
+    from fhestring_tpu_torch.crypto.kernels.cluster import CLUSTERS
 
     dev = dkeys.bsk_limbs.device
     N = dkeys.params.polynomial_size
@@ -541,16 +679,29 @@ def stepwise_batches(dkeys, phase):
             got[f"ext_product{body}"] = ep.ext_product(dl, limbs, body=body)
             got[f"ext_product{body} accumulating"] = ep.ext_product(
                 dl, limbs, out=acc.clone(), accumulate=True, body=body) - acc
+        for c in CLUSTERS:
+            got[f"ntt_ext<{c}>"] = ne.ntt_ext(dl, khat, cluster=c)
+            got[f"ntt_ext<{c}> accumulating"] = ne.ntt_ext(
+                dl, khat, out=acc.clone(), accumulate=True, cluster=c) - acc
+        for body in (None,) + K3_SWEEP_BODIES:
+            out, zero = torch.zeros_like(acc), torch.full_like(acc, 7)
+            ep.ext_product_step(acc, a, limbs, out=out, zero=zero, body=body)
+            if zero.any().item():
+                fail(f"ext_product's step body {body} left its third buffer "
+                     f"dirty at B={b}")
+            got[f"ext_product step body {body}"] = out - acc
         for name, out in got.items():
             if not torch.equal(out, want):
                 fail(f"{name} differs from ext_product's plain version at "
                      f"B={b}: max |diff| {max_abs_err(out, want)}")
-        picked.append(f"B={b}: K3{ep.pick_body(b, N, sms)}")
+        picked.append(f"B={b}: K3{ep.pick_body(b, N, sms)} "
+                      f"K4<{ne.pick_cluster(b, N, dev.index or 0)}>")
     print(f"phase {phase} step-wise kernels vs plain by batch: N={N}, step 0 "
           f"of the prod key, K5, K3 and K4 bit-exact; picked (groups, chunk, "
-          f"split) " + ", ".join(picked) + f"; and K3 in each of "
-          f"{len(K3_SWEEP_BODIES)} more bodies, fresh and accumulating, "
-          f"bit-exact at every B")
+          f"split) and blocks per item " + ", ".join(picked) + f"; and K3 "
+          f"in each of {len(K3_SWEEP_BODIES)} more bodies, fresh, "
+          f"accumulating and as the step body, and K4 in its 3 bodies, fresh "
+          f"and accumulating, bit-exact at every B")
 
 
 STEPWISE_ROUTES = {"K3": {"use_pallas": True}, "K4": {"use_ntt2": True}}
@@ -599,12 +750,16 @@ def stepwise_pbs(client, dkeys, bank, phase):
 
 
 def stepwise_graph(dkeys, phase, batches=(15, 5)):
-    """The step loop's CUDA graph on both routes: at the first B of
-    `batches` two different inputs through one cached graph, then one at
-    the second B; every result has the bits of the eager loop and of K2's
-    exact mode, each B captures once, and a replay counts n launches of K5
-    and of the route's product kernel.  A capture or a replay that raises
-    fails the run."""
+    """The step loop's CUDA graph on the K4 route and in each form of the
+    K3 route (``pbs.K3_GRAPH_ROUTES``): at the first B of `batches` two
+    different inputs through one cached graph, then one at the second B;
+    every result has the bits of the eager loop and of K2's exact mode,
+    each B captures once, and a replay counts n launches of K5 and of the
+    route's product kernel, or, in the K3 route's step form, n of K3's step
+    body and none of K5.  A capture or a replay that raises fails the run.
+    The replay times say which form of the K3 route is the fastest; the
+    one the port takes may not be slower than the others beyond the spread
+    of a replay (3%)."""
     import torch
 
     from fhestring_tpu_torch.crypto import pbs
@@ -616,10 +771,15 @@ def stepwise_graph(dkeys, phase, batches=(15, 5)):
     dev = dkeys.bsk_limbs.device
     N, n = dkeys.params.polynomial_size, dkeys.params.lwe_dimension
     gen = torch.Generator().manual_seed(phase)
-    line = []
-    for label, route in STEPWISE_ROUTES.items():
-        use_ntt2 = "use_ntt2" in route
+    taken = pbs.K3_GRAPH_ROUTE
+    routes = [("K4", True, taken)] + [(f"K3 {form}", False, form)
+                                      for form in pbs.K3_GRAPH_ROUTES]
+    line, replay_ms = [], {}
+    for label, use_ntt2, form in routes:
+        pbs.K3_GRAPH_ROUTE = form
         product = ne.ntt_ext if use_ntt2 else ep.ext_product
+        step_form = not use_ntt2 and form == "step"
+        want_counts = (0, n, n) if step_form else (n, n, 0)
         times = []
         for b, turns in zip(batches, (2, 1)):
             held = len(pbs._STEP_GRAPHS)
@@ -628,18 +788,25 @@ def stepwise_graph(dkeys, phase, batches=(15, 5)):
                                     dtype=torch.int64, generator=gen).to(dev)
                 amt = torch.randint(0, 2 * N, (b, n), dtype=torch.int32,
                                     generator=gen).to(dev)
-                counts = rd.rotate_diff_decompose.launches, product.launches
+                before = (rd.rotate_diff_decompose.launches, product.launches,
+                          ep.ext_product.bodies["step"])
                 t0 = time.perf_counter()
                 got = pbs._blind_rotate_stepwise(acc, amt, dkeys, use_ntt2)
                 torch.cuda.synchronize()
                 times.append(f"B={b} {(time.perf_counter() - t0) * 1e3:.1f} ms"
                              + (" (with the capture)" if turn == 0 else ""))
-                if (rd.rotate_diff_decompose.launches - counts[0],
-                        product.launches - counts[1]) != (n, n):
-                    fail(f"{label} route: a replay counted "
-                         f"{rd.rotate_diff_decompose.launches - counts[0]} "
-                         f"and {product.launches - counts[1]} launches, not "
-                         f"{n} each")
+                counted = (rd.rotate_diff_decompose.launches - before[0],
+                           product.launches - before[1],
+                           ep.ext_product.bodies["step"] - before[2])
+                if counted != want_counts:
+                    fail(f"{label} route: a replay counted {counted} launches "
+                         f"of (K5, the product kernel, K3's step body), not "
+                         f"{want_counts}")
+                if turn:
+                    replay_ms[label, b] = cuda_ms(
+                        lambda: pbs._blind_rotate_stepwise(acc, amt, dkeys,
+                                                           use_ntt2), 3)[0]
+                    times[-1] = f"B={b} {replay_ms[label, b]:.2f} ms"
                 t0 = time.perf_counter()
                 eager = pbs._blind_rotate_stepwise(acc, amt, dkeys, use_ntt2,
                                                    graph=False)
@@ -656,8 +823,16 @@ def stepwise_graph(dkeys, phase, batches=(15, 5)):
                 fail(f"{label} route: B={b} captured "
                      f"{len(pbs._STEP_GRAPHS) - held} graphs, not 1")
         line.append(f"{label} route " + ", ".join(times))
+    pbs.K3_GRAPH_ROUTE = taken
+    b = batches[0]
+    best = min(replay_ms[f"K3 {form}", b] for form in pbs.K3_GRAPH_ROUTES)
+    if replay_ms[f"K3 {taken}", b] > 1.03 * best:
+        fail(f"the K3 route takes the {taken!r} form, "
+             f"{replay_ms[f'K3 {taken}', b]:.2f} ms a rotation at B={b}, but "
+             f"another form takes {best:.2f} ms")
     print(f"phase {phase} step-loop graph: {n} steps replayed from one graph "
-          f"per (route, B), bit-identical to the eager loop and to K2 exact; "
+          f"per (route, form, B), bit-identical to the eager loop and to K2 "
+          f"exact; the K3 route takes the {taken!r} form; "
           + "; ".join(line))
 
 
@@ -687,6 +862,73 @@ def stepwise_throughput(client, dkeys, bank, phase):
           + "; ".join(line))
 
 
+# The fixed subset of the PARAM_PROD CLI run, for a card so slow that all
+# 52 would not fit the script's time: split, replace, strip, trim, compare
+# and the rest of the families.
+CLI_PROD_SUBSET = ("Contains", "EndsWithClear", "EqIgnoreCase", "FindClear",
+                   "Rfind", "Repeat", "ReplaceN", "RsplitOnce", "SplitClear",
+                   "SplitAsciiWhitespace", "SplitTerminator", "SplitNClear",
+                   "StripPrefix", "StripSuffixClear", "ToLower", "Trim",
+                   "Concatenate", "Lt", "Ge", "Ne")
+CLI_ROW = re.compile(r"(\w+) (\d+\.\d+)s \[(\d+) PBS in (\d+) batches\]$")
+
+
+def cli_on_the_card(params_name, table, phase, methods=None):
+    """The ported CLI (``fhestring_tpu_torch.cli.main``) on the card, with
+    the arguments of benchmarks/methods.py: every variant's line must say
+    ``Test Passed`` and carry the table's (PBS, batches); the closing line
+    must count them all.  At the turbo set the PBS items must also be the
+    rows of benchmarks/methods_turbo_r5c.jsonl (the card has no JAX engine
+    to ask; that table's batch counts are up to 2 above the engine's in 28
+    rows, see TURBO_COUNTS)."""
+    import contextlib
+    import io
+
+    from fhestring_tpu_torch import cli
+
+    argv = ["--string", S, "--pattern", PAT, "--n", "2", "--from", "o",
+            "--to", "0", "--params", params_name, "--device", "cuda",
+            "--metrics"] + (["--methods", *methods] if methods else [])
+    methods = list(methods or cli.METHODS)
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        rc = cli.main(argv)
+    seconds = time.perf_counter() - t0
+    lines = out.getvalue().splitlines()
+    rows = [ln for ln in lines if ln.startswith("Test ")]
+    if rc != 0 or lines[-1] != f"{len(methods)}/{len(methods)} methods passed":
+        fail(f"the CLI at --params {params_name} returned {rc}: "
+             + " | ".join(ln for ln in rows if not ln.startswith(
+                 "Test Passed")) + " | " + lines[-1])
+    if len(rows) != len(methods):
+        fail(f"the CLI printed {len(rows)} method lines for {len(methods)}")
+    with open(os.path.join(ROOT, "benchmarks", "methods_turbo_r5c.jsonl")) as f:
+        r5c = {r["method"]: r["pbs"] for r in map(json.loads, f)}
+    total, slowest = [0, 0], ("", 0.0)
+    for method, row in zip(methods, rows):
+        m = CLI_ROW.search(row)
+        if not (row.startswith("Test Passed: OK, Result: ") and m
+                and m.group(1) == method):
+            fail(f"the CLI's line for {method}: {row!r}")
+        counts = (int(m.group(3)), int(m.group(4)))
+        if counts != table[method]:
+            fail(f"the CLI's {method}: (PBS, batches) {counts}, table "
+                 f"{table[method]}")
+        if params_name == "turbo" and counts[0] != r5c[method]:
+            fail(f"the CLI's {method}: {counts[0]} PBS, methods_turbo_r5c "
+                 f"lists {r5c[method]}")
+        total = [total[0] + counts[0], total[1] + counts[1]]
+        if float(m.group(2)) > slowest[1]:
+            slowest = (method, float(m.group(2)))
+    print(f"phase {phase} CLI on the card: --params {params_name} --device "
+          f"cuda --metrics, {len(methods)}/{len(methods)} methods passed, "
+          f"every row's (PBS, batches) equal to the table: {total[0]} PBS in "
+          f"{total[1]} batches; {seconds:.1f} s with keygen and packing, the "
+          f"slowest {slowest[0]} {slowest[1]:.1f} s")
+    return seconds
+
+
 def main() -> int:
     import torch
 
@@ -708,6 +950,7 @@ def main() -> int:
     from fhestring_tpu_torch.crypto.kernels import rotate_decompose as rd
 
     dev = torch.device("cuda")
+    t_start = time.perf_counter()
 
     # 1. device ---------------------------------------------------------------
     name, count = torch.cuda.get_device_name(0), torch.cuda.device_count()
@@ -757,11 +1000,8 @@ def main() -> int:
                     tensor_bytes(acc, acc, amt, khat))
 
     bank = pbs_known_lut(client, dkeys, 5)
-    with open(os.path.join(ROOT, "benchmarks", "methods_turbo_r5c.jsonl")) as f:
-        turbo_counts = {r["method"]: (r["pbs"], r["pbs_batches"])
-                        for r in map(json.loads, f)}
     launches32, = requests(client, server, [(br.blind_rotate32, 1)],
-                           turbo_counts, 6)
+                           TURBO_COUNTS, 6)
     throughput(client, dkeys, bank, br.blind_rotate32,
                br.blind_rotate32_plain, acc32, khat, 7)
     del client, server, dkeys, khat, bank
@@ -815,10 +1055,10 @@ def main() -> int:
     from fhestring_tpu_torch.crypto import pbs
     spans, replay = [], pbs._replay_steps
 
-    def timed_replay(entry, use_ntt2):
+    def timed_replay(entry):
         start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
         start.record()
-        replay(entry, use_ntt2)
+        replay(entry)
         end.record()
         spans.append((start, end))
 
@@ -829,6 +1069,17 @@ def main() -> int:
         PROD_COUNTS, 15, spans)
     pbs._replay_steps = replay
     stepwise_throughput(client, dkeys, bank, 16)
+    del client, server, server_nk, dkeys, khat, bank
+    pbs._STEP_GRAPHS.clear()
+    torch.cuda.empty_cache()
+
+    # -- the ported CLI, all 52 method variants, on the card ------------------
+    spent = cli_on_the_card("turbo", TURBO_COUNTS, 17)
+    # PARAM_PROD costs about 1.5 times the turbo run: all 52 unless that
+    # would pass 700 s since the start, else the fixed subset
+    all_fit = time.perf_counter() - t_start + 1.6 * spent < 700
+    cli_on_the_card("prod", PROD_COUNTS, 18,
+                    None if all_fit else CLI_PROD_SUBSET)
 
     # One step at the batch of phase 13: K3 and K4 compute the same function
     # (the exact mode's 44 transforms, 21 (la, lb) pairs x 4 (r, col)

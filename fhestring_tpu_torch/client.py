@@ -61,19 +61,29 @@ class ClientKey:
                     seed: int | None = 0, device="cpu") -> "ClientKey":
         return cls(params, seed, device=device)
 
-    def get_server_key(self, device=None, with_ntt2: bool | None = None):
+    def get_server_key(self, with_ntt2: bool | None = None,
+                       cache_path: str | None = None, *, device=None):
         """Pack the evaluation keys onto ``device`` (default: the client's)
-        and return the ServerKey that evaluates on it.
+        and return the ServerKey that evaluates on it.  The positional
+        parameters are the JAX package's ``ClientKey.get_server_key``'s.
 
         with_ntt2: also pack the NTT-domain bootstrap key, which the
         whole-rotation kernels (K1, K2) read.  False leaves it out: a
-        64-bit set is then served by the step-wise K5 + K3 route, and a
+        64-bit set is then served by the step-wise K3 route, and a
         32-bit set cannot be served (``shortint.pbs_route``).  None (the
         default) packs it on every device.  The JAX package's default packs
         it only off CPU; here the CPU path runs the plain versions of K1
-        and K2, which read it.  The bits are the same either way."""
+        and K2, which read it.  The bits are the same either way.
+
+        cache_path: the JAX package's packed-key checkpoint (.npz).  It
+        needs the port of ``serialize.py``, which is still to come
+        (ROADMAP.md, Queue 1 item 3): any value but None raises."""
         from .server import ServerKey
 
+        if cache_path is not None:
+            raise NotImplementedError(
+                "get_server_key(cache_path=) needs the port of serialize.py, "
+                "which ROADMAP.md lists as still to come (Queue 1 item 3)")
         device = self.device if device is None else device
         return ServerKey(pack_server_keys(self._server_raw, device,
                                           with_ntt2=with_ntt2 is not False),

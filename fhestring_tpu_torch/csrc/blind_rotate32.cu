@@ -217,6 +217,15 @@ blind_rotate32_kernel(const int32_t* __restrict__ acc_in,
 // What the cluster bodies (rotate_cluster.cuh) take from this kernel.
 struct Spec {
   using Acc = uint32_t;
+  // The digits of a step come from the accumulator and the item's rotation
+  // amount of that step.
+  using Source = const int32_t*;
+  using Step = int;
+  static __device__ __forceinline__ Step step(Source amounts, size_t item,
+                                              int row0, int n, int n_steps,
+                                              int j) {
+    return amounts[item * n_steps + j];
+  }
   static constexpr int kCount = kPlanes;
   static constexpr int kKeyPolys = kDigits * kOut;
 
@@ -276,11 +285,13 @@ extern "C" int fhe_blind_rotate32(const void* acc_in, void* acc_out,
   while ((1 << log_n) < n) ++log_n;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (cluster == 2)
-    return rotate_cluster::launch<Spec, 2>(acc_in, acc_out, amounts, khat, tw,
-                                           batch, n_steps, n, log_n, s);
+    return rotate_cluster::launch<Spec, 2>(
+        acc_in, acc_out, static_cast<const int32_t*>(amounts), khat, tw,
+        batch, n_steps, n, log_n, s);
   if (cluster == 4)
-    return rotate_cluster::launch<Spec, 4>(acc_in, acc_out, amounts, khat, tw,
-                                           batch, n_steps, n, log_n, s);
+    return rotate_cluster::launch<Spec, 4>(
+        acc_in, acc_out, static_cast<const int32_t*>(amounts), khat, tw,
+        batch, n_steps, n, log_n, s);
   const size_t smem = static_cast<size_t>(kRows + kOut) * n * 4 +
                       static_cast<size_t>(kOut) * n * 2;
   cudaError_t err = cudaFuncSetAttribute(

@@ -173,44 +173,23 @@ blind_rotate64_kernel(const uint64_t* __restrict__ acc_in,
     out[idx] = acc[idx];
 }
 
-// What the cluster bodies (rotate_cluster.cuh) take from this kernel.
+// What the cluster bodies (rotate_cluster.cuh) take from this kernel: the
+// products of ntt64.cuh, and the digits of a step from the accumulator and
+// the item's rotation amount of that step.
 template <bool kRounded, bool kApprox>
-struct Spec {
-  using Acc = uint64_t;
-  static constexpr int kCount = Planes<kApprox>::kCount;
-  static constexpr int kKeyPolys = kRows * ntt64::kKeyPolys;
+struct Spec : ClusterProduct<kApprox> {
+  using Source = const int32_t*;
+  using Step = int;
+  static __device__ __forceinline__ Step step(Source amounts, size_t item,
+                                              int row0, int n, int n_steps,
+                                              int j) {
+    return amounts[item * n_steps + j];
+  }
 
   template <uint32_t P>
   static __device__ void digits(uint32_t* x, const uint64_t* acc, int rows,
                                 int a, int n, int log_n) {
     load_digits<P, kRounded>(x, acc, rows, a, n, log_n);
-  }
-
-  template <uint32_t P, int kCols>
-  static __device__ void pointwise(uint32_t* x, const uint32_t* d0,
-                                   const uint32_t* d1,
-                                   const uint16_t* __restrict__ key, int col0,
-                                   int n) {
-    ntt64::pointwise<P, kApprox, kCols>(x, d0, d1, key, col0, n);
-  }
-
-  // One output row's key polys of a step and prime: 2 runs of 8 polys.
-  static constexpr int kStageRuns = kRows;
-  static constexpr int kStageRunPolys = kKeyPlanes;
-  static constexpr int kStageRunStride = ntt64::kKeyPolys;
-
-  template <uint32_t P>
-  static __device__ void pointwise_staged(uint32_t* x, const uint32_t* d0,
-                                          const uint32_t* d1,
-                                          const uint16_t* staged, int n) {
-    ntt64::pointwise<P, kApprox, 1, true>(x, d0, d1, staged, 0, n);
-  }
-
-  template <class T0, class T1>
-  static __device__ __forceinline__ uint64_t crt_sum(const T0* res0,
-                                                     const T1* res1, int r,
-                                                     int t, int n) {
-    return ntt64::crt_sum<kApprox>(res0, res1, r, t, n);
   }
 };
 
@@ -220,11 +199,13 @@ int launch(const void* acc_in, void* acc_out, const void* amounts,
            int log_n, int cluster, cudaStream_t stream) {
   using S = Spec<kRounded, kApprox>;
   if (cluster == 2)
-    return rotate_cluster::launch<S, 2>(acc_in, acc_out, amounts, khat, tw,
-                                        batch, n_steps, n, log_n, stream);
+    return rotate_cluster::launch<S, 2>(
+        acc_in, acc_out, static_cast<const int32_t*>(amounts), khat, tw,
+        batch, n_steps, n, log_n, stream);
   if (cluster == 4)
-    return rotate_cluster::launch<S, 4>(acc_in, acc_out, amounts, khat, tw,
-                                        batch, n_steps, n, log_n, stream);
+    return rotate_cluster::launch<S, 4>(
+        acc_in, acc_out, static_cast<const int32_t*>(amounts), khat, tw,
+        batch, n_steps, n, log_n, stream);
   constexpr int kOut = Planes<kApprox>::kOut;
   const size_t smem = static_cast<size_t>(kRows) * n * 8 +
                       static_cast<size_t>(kOut) * n * (4 + 2);

@@ -361,4 +361,42 @@ __device__ __forceinline__ void save_residues(uint16_t* res0,
   __syncthreads();
 }
 
+// What a thread-block-cluster body (rotate_cluster.cuh) takes from the
+// 64-bit kernels, but for the source of the digits: the accumulator's word,
+// the pointwise products, the CRT, and how one output row's key polys of a
+// step and prime lie in the key (2 runs of 8 polys).  blind_rotate64.cu and
+// ntt_ext.cu each add their digits.
+template <bool kApprox>
+struct ClusterProduct {
+  using Acc = uint64_t;
+  static constexpr int kCount = Planes<kApprox>::kCount;
+  static constexpr int kKeyPolys = kRows * ntt64::kKeyPolys;
+
+  template <uint32_t P, int kCols>
+  static __device__ void pointwise(uint32_t* x, const uint32_t* d0,
+                                   const uint32_t* d1,
+                                   const uint16_t* __restrict__ key, int col0,
+                                   int n) {
+    ntt64::pointwise<P, kApprox, kCols>(x, d0, d1, key, col0, n);
+  }
+
+  static constexpr int kStageRuns = kRows;
+  static constexpr int kStageRunPolys = kKeyPlanes;
+  static constexpr int kStageRunStride = ntt64::kKeyPolys;
+
+  template <uint32_t P>
+  static __device__ void pointwise_staged(uint32_t* x, const uint32_t* d0,
+                                          const uint32_t* d1,
+                                          const uint16_t* staged, int n) {
+    ntt64::pointwise<P, kApprox, 1, true>(x, d0, d1, staged, 0, n);
+  }
+
+  template <class T0, class T1>
+  static __device__ __forceinline__ uint64_t crt_sum(const T0* res0,
+                                                     const T1* res1, int r,
+                                                     int t, int n) {
+    return ntt64::crt_sum<kApprox>(res0, res1, r, t, n);
+  }
+};
+
 }  // namespace ntt64

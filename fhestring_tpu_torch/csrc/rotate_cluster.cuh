@@ -48,7 +48,13 @@
 //   S::Acc         the accumulator's word (uint32_t or uint64_t);
 //   S::kCount      product planes per output row;
 //   S::kKeyPolys   key polys per step and prime;
-//   S::digits<P>(x, acc, rows, a, n, log_n)   the limb polys of `rows`
+//   S::Source      what the digits of a launch are made from, a kernel
+//                  argument: the rotation amounts (blind_rotate32.cu,
+//                  blind_rotate64.cu) or the digit limbs given (ntt_ext.cu,
+//                  which runs a single step);
+//   S::Step        the same for one item, first row and step:
+//                  S::step(source, item, row0, n, n_steps, j);
+//   S::digits<P>(x, acc, rows, step, n, log_n)   the limb polys of `rows`
 //                  accumulator rows as residues mod P at x[(r * 3 + l) * n
 //                  + t], block-wide;
 //   S::pointwise<P, kCols>(x, d0, d1, key, col0, n)   the product polys of
@@ -174,7 +180,8 @@ struct Body {
 template <class S, int kC, uint32_t P>
 __device__ void prime_part(uint32_t* x, const uint32_t* hin,
                            uint32_t* peer_hin, uint16_t* peer_res,
-                           const typename S::Acc* acc, int a,
+                           const typename S::Acc* acc,
+                           const typename S::Step& a,
                            const uint16_t* __restrict__ key,
                            uint16_t* staged, uint64_t* bar, int step,
                            int n_steps, size_t step_stride,
@@ -217,11 +224,9 @@ __device__ void prime_part(uint32_t* x, const uint32_t* hin,
 
 template <class S, int kC>
 __global__ void __launch_bounds__(kThreads, 1)
-kernel(const typename S::Acc* __restrict__ acc_in,
-       typename S::Acc* __restrict__ acc_out,
-       const int32_t* __restrict__ amounts,
-       const uint16_t* __restrict__ khat, const uint2* __restrict__ tw,
-       int n_steps, int n, int log_n) {
+kernel(const typename S::Acc* acc_in, typename S::Acc* acc_out,
+       const typename S::Source source, const uint16_t* __restrict__ khat,
+       const uint2* __restrict__ tw, int n_steps, int n, int log_n) {
   using B = Body<S, kC>;
   using Acc = typename S::Acc;
   extern __shared__ __align__(16) unsigned char cluster_smem[];
@@ -241,9 +246,12 @@ kernel(const typename S::Acc* __restrict__ acc_in,
   uint32_t* peer_hin =
       B::kSplitRows ? cluster.map_shared_rank(hin, rank ^ 2u) : nullptr;
 
+  // The accumulator may be updated in place (acc_out == acc_in): a row is
+  // read here, before the first cluster barrier, and written after the
+  // last.  Without acc_in it starts at zero.
   const Acc* in = acc_in + (item * kRows + row0) * n;
   for (int idx = threadIdx.x; idx < B::kMyRows * n; idx += blockDim.x)
-    acc[idx] = in[idx];
+    acc[idx] = acc_in ? in[idx] : Acc(0);
   cluster_arrive();  // every block of the cluster has started
   cluster_wait();
   if (!B::kSplitRows) cluster_arrive();
@@ -261,16 +269,16 @@ kernel(const typename S::Acc* __restrict__ acc_in,
     __syncthreads();
   }
   const uint2* twp = tw + 2 * n * prime;
-  const int32_t* amt = amounts + item * n_steps;
   for (int j = 0; j < n_steps; ++j, key += step_stride) {
+    const typename S::Step a = S::step(source, item, row0, n, n_steps, j);
     if (prime == 0)
-      prime_part<S, kC, kP0>(x, hin, peer_hin, peer_res, acc, amt[j], key,
-                             staged, bar, j, n_steps, step_stride, twp, row0,
-                             n, log_n);
+      prime_part<S, kC, kP0>(x, hin, peer_hin, peer_res, acc, a, key, staged,
+                             bar, j, n_steps, step_stride, twp, row0, n,
+                             log_n);
     else
-      prime_part<S, kC, kP1>(x, hin, peer_hin, peer_res, acc, amt[j], key,
-                             staged, bar, j, n_steps, step_stride, twp, row0,
-                             n, log_n);
+      prime_part<S, kC, kP1>(x, hin, peer_hin, peer_res, acc, a, key, staged,
+                             bar, j, n_steps, step_stride, twp, row0, n,
+                             log_n);
     cluster_arrive();  // barrier R
     cluster_wait();
     for (int idx = threadIdx.x; idx < B::kMyRows * n; idx += blockDim.x) {
@@ -292,7 +300,18 @@ kernel(const typename S::Acc* __restrict__ acc_in,
     out[idx] = acc[local * n + idx];
 }
 
+// Lets the body use the shared memory of polynomial size n (and below).
 template <class S, int kC>
+cudaError_t allow_shared_memory(int n) {
+  return cudaFuncSetAttribute(
+      kernel<S, kC>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(Body<S, kC>::smem_bytes(n)));
+}
+
+// kAllow: set the kernel's shared-memory limit for this n first.  A caller
+// whose launches may be captured into a CUDA graph sets it once before
+// (allow_shared_memory) and passes false: a capture cannot.
+template <class S, int kC, bool kAllow = true>
 cudaError_t configure(cudaLaunchConfig_t* config, cudaLaunchAttribute* attr,
                       int batch, int n, cudaStream_t stream) {
   const size_t smem = Body<S, kC>::smem_bytes(n);
@@ -307,25 +326,24 @@ cudaError_t configure(cudaLaunchConfig_t* config, cudaLaunchAttribute* attr,
   config->stream = stream;
   config->attrs = attr;
   config->numAttrs = 1;
-  return cudaFuncSetAttribute(kernel<S, kC>,
-                              cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              static_cast<int>(smem));
+  return kAllow ? allow_shared_memory<S, kC>(n) : cudaSuccess;
 }
 
 // Launches the cluster body of kC blocks an item; the launch's cudaError_t.
-template <class S, int kC>
-int launch(const void* acc_in, void* acc_out, const void* amounts,
+template <class S, int kC, bool kAllow = true>
+int launch(const void* acc_in, void* acc_out, typename S::Source source,
            const void* khat, const void* tw, int batch, int n_steps, int n,
            int log_n, cudaStream_t stream) {
   using Acc = typename S::Acc;
   cudaLaunchConfig_t config;
   cudaLaunchAttribute attr;
-  cudaError_t err = configure<S, kC>(&config, &attr, batch, n, stream);
+  cudaError_t err =
+      configure<S, kC, kAllow>(&config, &attr, batch, n, stream);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (batch == 0) return 0;
   err = cudaLaunchKernelEx(
       &config, kernel<S, kC>, static_cast<const Acc*>(acc_in),
-      static_cast<Acc*>(acc_out), static_cast<const int32_t*>(amounts),
+      static_cast<Acc*>(acc_out), source,
       static_cast<const uint16_t*>(khat), static_cast<const uint2*>(tw),
       n_steps, n, log_n);
   return static_cast<int>(err != cudaSuccess ? err : cudaGetLastError());

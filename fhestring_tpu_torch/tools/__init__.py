@@ -42,15 +42,17 @@ def graph_ms(fn, launches: int = 20, repeat: int = 5) -> float:
 
     kernels = (rotate_decompose.rotate_diff_decompose,
                ext_product.ext_product, ntt_ext.ntt_ext)
-    counts = [k.launches for k in kernels]
+    counts = [(k.launches, dict(getattr(k, "bodies", {}))) for k in kernels]
     fn()  # loads the kernels: a capture cannot
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph):
         for _ in range(launches):
             fn()
     ms = cuda_ms(graph.replay, repeat) / launches
-    for kernel, count in zip(kernels, counts):
+    for kernel, (count, bodies) in zip(kernels, counts):
         kernel.launches = count
+        if bodies:
+            kernel.bodies.update(bodies)
     return ms
 
 

@@ -113,8 +113,8 @@ def test_pbs_batch_cuda_equals_cpu(cuda, key_material, B):
 def test_contains_on_cuda_equals_cpu(cuda):
     ck = ClientKey(P, seed=1)
     s, pat = ck.encrypt("hello", 1), ck.encrypt_no_padding("ll")
-    cpu_out = ck.get_server_key("cpu").contains(s, pat)
-    out = ck.get_server_key(cuda).contains(
+    cpu_out = ck.get_server_key(device="cpu").contains(s, pat)
+    out = ck.get_server_key(device=cuda).contains(
         FheString(blocks_from_numpy(to_numpy(s.blocks), cuda)),
         FheString(blocks_from_numpy(to_numpy(pat.blocks), cuda)))
     assert torch.equal(out.blocks.ct.cpu(), cpu_out.blocks.ct)
@@ -228,7 +228,7 @@ def test_contains64_on_cuda_equals_cpu_in_the_same_mode(cuda, monkeypatch):
     the kernel once per PBS batch."""
     ck = ClientKey(P64, seed=1)
     s, pat = ck.encrypt("hello", 1), ck.encrypt_no_padding("ll")
-    server = ck.get_server_key(cuda)
+    server = ck.get_server_key(device=cuda)
     before = br64.blind_rotate64.launches
     metrics.reset()
     out = server.contains(
@@ -244,7 +244,7 @@ def test_contains64_on_cuda_equals_cpu_in_the_same_mode(cuda, monkeypatch):
         return pbs.pbs_batch(*args, **kwargs)
 
     monkeypatch.setattr(shortint, "pbs_batch", production)
-    cpu_out = ck.get_server_key("cpu").contains(s, pat)
+    cpu_out = ck.get_server_key(device="cpu").contains(s, pat)
     assert torch.equal(out.blocks.ct.cpu(), cpu_out.blocks.ct)
     assert ck.decrypt_char(out) == 1
 
@@ -599,7 +599,7 @@ def test_contains_without_ntt_key_on_cuda_equals_cpu(stepwise):
     CPU path on the same keys; both run exact."""
     ck = ClientKey(P64, seed=1)
     s, pat = ck.encrypt("hello", 1), ck.encrypt_no_padding("ll")
-    server = ck.get_server_key(stepwise, with_ntt2=False)
+    server = ck.get_server_key(with_ntt2=False, device=stepwise)
     assert server.backend.sc.keys.bsk_ntt64 is None
     before = (rd.rotate_diff_decompose.launches, ep.ext_product.launches,
               br64.blind_rotate64.launches)
@@ -613,6 +613,156 @@ def test_contains_without_ntt_key_on_cuda_equals_cpu(stepwise):
     assert (rd.rotate_diff_decompose.launches, ep.ext_product.launches,
             br64.blind_rotate64.launches) == (before[0] + steps,
                                               before[1] + steps, before[2])
-    cpu_out = ck.get_server_key("cpu", with_ntt2=False).contains(s, pat)
+    cpu_out = ck.get_server_key(with_ntt2=False, device="cpu").contains(s, pat)
     assert torch.equal(out.blocks.ct.cpu(), cpu_out.blocks.ct)
     assert ck.decrypt_char(out) == 1
+
+
+# ---------------------------------------------------------------------------
+# K3's step body and overlapped launch, K4's cluster bodies, the CLI
+# ---------------------------------------------------------------------------
+
+STEP_SIZES = [128, 256, 512, 1024, 2048]
+STEP_BATCHES = [1, 5, 8, 15, 33, 99]
+
+
+def _step_case(n, B, steps, dev):
+    gen = torch.Generator().manual_seed(7 * n + B)
+    acc = torch.randint(-2**63, 2**63 - 1, (B, 2, n), dtype=torch.int64,
+                        generator=gen).to(dev)
+    amt = torch.randint(0, 2 * n, (steps, B), dtype=torch.int32,
+                        generator=gen)
+    amt[:3, 0] = torch.tensor([0, n, 2 * n - 1], dtype=torch.int32)[:steps]
+    bsk = torch.randint(-2**63, 2**63 - 1, (steps, 2, 2, n),
+                        dtype=torch.int64, generator=gen)
+    return acc, amt.to(dev), bsk
+
+
+@pytest.mark.parametrize("B", STEP_BATCHES)
+@pytest.mark.parametrize("n", STEP_SIZES)
+def test_ext_product_step_body_matches_k5_then_k3(stepwise, n, B):
+    """Four consecutive steps of K3's step body over three rotating
+    buffers (the third dirty at the start), each step bit-identical to K5
+    followed by K3 adding into the accumulator, and to K3 launched
+    overlapped behind K5; the buffer a step zeroes is zero after it.  At
+    N <= 256 also against the plain version on the CPU."""
+    acc, amt, bsk = _step_case(n, B, 4, stepwise)
+    limbs = keys.pack_bsk_limbs(bsk, stepwise)
+    bufs = [acc.clone(), torch.zeros_like(acc), torch.full_like(acc, 7)]
+    ref, over = acc.clone(), acc.clone()
+    dl = torch.empty((3, B, 2 * n), dtype=torch.int8, device=stepwise)
+    before = ep.ext_product.bodies["step"]
+    for j in range(4):
+        ep.ext_product(rd.rotate_diff_decompose(ref, amt[j]), limbs[j],
+                       out=ref, accumulate=True)
+        rd.rotate_diff_decompose(over, amt[j], out=dl)
+        ep.ext_product(dl, limbs[j], out=over, accumulate=True, overlap=True)
+        out = ep.ext_product_step(bufs[j % 3], amt[j], limbs[j],
+                                  out=bufs[(j + 1) % 3],
+                                  zero=bufs[(j + 2) % 3])
+        assert out is bufs[(j + 1) % 3]
+        assert torch.equal(out, ref), j
+        assert torch.equal(over, ref), j
+        assert not bufs[(j + 2) % 3].any()
+    assert ep.ext_product.bodies["step"] == before + 4
+    if n <= 256:
+        cpu, cpu_limbs = acc.cpu(), limbs.cpu()
+        for j in range(4):
+            cpu = ep.ext_product_step_plain(cpu, amt[j].cpu(), cpu_limbs[j])
+        assert torch.equal(ref.cpu(), cpu)
+
+
+@pytest.mark.parametrize("n", [128, 2048])
+def test_ext_product_step_body_in_every_kernel_body(stepwise, n):
+    acc, amt, bsk = _step_case(n, 33, 1, stepwise)
+    limbs = keys.pack_bsk_limbs(bsk, stepwise)[0]
+    want = acc + ep.ext_product(rd.rotate_diff_decompose(acc, amt[0]), limbs)
+    for body in _k3_bodies(n):
+        out, zero = torch.zeros_like(acc), torch.ones_like(acc)
+        ep.ext_product_step(acc, amt[0], limbs, out=out, zero=zero, body=body)
+        assert torch.equal(out, want), body
+        assert not zero.any(), body
+
+
+@pytest.mark.parametrize("cluster", ne.CLUSTERS)
+@pytest.mark.parametrize("B", STEP_BATCHES)
+@pytest.mark.parametrize("n", [64] + STEP_SIZES)
+def test_ntt_ext_every_body_matches_plain_and_k3(stepwise, n, B, cluster):
+    """Each body of K4, returning a fresh tensor and adding into the
+    accumulator, against the one-block body (held to the plain version at
+    small sizes) and, from N = 128 on, against K3."""
+    acc, amt, bsk = _step_case(n, B, 1, stepwise)
+    khat = keys.pack_bsk_ntt(bsk, stepwise, keys.KEY_PLANES64)[0]
+    dl = rd.rotate_diff_decompose(acc, amt[0])
+    want = (ne.ntt_ext_plain(dl, khat) if n <= 256 or B <= 8
+            else ne.ntt_ext(dl, khat, cluster=1))
+    before = dict(ne.ntt_ext.bodies)
+    got = ne.ntt_ext(dl, khat, cluster=cluster)
+    assert torch.equal(got, want)
+    added = acc.clone()
+    assert ne.ntt_ext(dl, khat, out=added, accumulate=True,
+                      cluster=cluster) is added
+    assert torch.equal(added, acc + want)
+    assert ne.ntt_ext.bodies[cluster] == before[cluster] + 2
+    if n >= ep.MIN_N:
+        assert torch.equal(
+            ep.ext_product(dl, keys.pack_bsk_limbs(bsk, stepwise)[0]), want)
+
+
+@pytest.mark.parametrize("form", pbs.K3_GRAPH_ROUTES)
+def test_every_form_of_the_k3_graph_equals_the_eager_loop(
+        stepwise, key_material64, monkeypatch, form):
+    """Each form of the K3 route's graph (K5 then K3, K3 overlapped, K3's
+    step body), two inputs through one cached graph, against the eager loop
+    and K2's exact mode; the step form counts n launches of K3's step body
+    and none of K5."""
+    _, dev = key_material64
+    n, N = P64.lwe_dimension, P64.polynomial_size
+    monkeypatch.setattr(pbs, "K3_GRAPH_ROUTE", form)
+    gen = torch.Generator().manual_seed(3)
+    for turn in range(2):
+        acc = torch.randint(-2**63, 2**63 - 1, (5, 2, N), dtype=torch.int64,
+                            generator=gen).to(stepwise)
+        amt = torch.randint(0, 2 * N, (5, n), dtype=torch.int32,
+                            generator=gen).to(stepwise)
+        before = (rd.rotate_diff_decompose.launches, ep.ext_product.launches,
+                  ep.ext_product.bodies["step"])
+        got = pbs._blind_rotate_stepwise(acc, amt, dev, False)
+        counted = (rd.rotate_diff_decompose.launches - before[0],
+                   ep.ext_product.launches - before[1],
+                   ep.ext_product.bodies["step"] - before[2])
+        assert counted == ((0, n, n) if form == "step" else (n, n, 0))
+        assert torch.equal(got, pbs._blind_rotate_stepwise(
+            acc, amt, dev, False, graph=False))
+        assert torch.equal(got, br64.blind_rotate64(acc, amt, dev.bsk_ntt64))
+
+
+def test_pbs_batch_takes_use_fused(cuda, key_material64):
+    """A caller written for the JAX signature: use_fused=True is the
+    whole-rotation kernel, which is also the default."""
+    srv, dev = key_material64
+    rng = np.random.default_rng(2)
+    sk = ref.keygen(P64, np.random.default_rng(11))[0]
+    cts = torus.from_numpy(np.stack(
+        [ref.shortint_encrypt(sk, int(m), rng) for m in range(8)]), cuda)
+    bank = keys.pack_luts([[(3 * x + 1) % 16 for x in range(16)]], P64, cuda)
+    idx = torch.zeros(8, dtype=torch.int64, device=cuda)
+    before = br64.blind_rotate64.launches
+    fused = pbs.pbs_batch(cts, idx, bank, dev, use_fused=True, use_pallas=True)
+    assert br64.blind_rotate64.launches == before + 1
+    assert torch.equal(fused, pbs.pbs_batch(cts, idx, bank, dev))
+
+
+def test_cli_on_the_card_passes_a_handful(cuda, capsys):
+    """The ported CLI at its default device, on the 64-bit CI set: one
+    variant of each family passes against Python's str."""
+    from fhestring_tpu_torch import cli
+
+    methods = ["Contains", "Find", "ReplaceN", "RsplitOnce", "SplitClear",
+               "StripPrefix", "TrimStart", "Repeat", "Lt"]
+    rc = cli.main(["--string", "hello world", "--pattern", "ello", "--n", "2",
+                   "--from", "o", "--to", "0", "--params", "test",
+                   "--metrics", "--methods", *methods])
+    out = capsys.readouterr().out.splitlines()
+    assert rc == 0 and out[-1] == f"{len(methods)}/{len(methods)} methods passed"
+    assert sum(ln.startswith("Test Passed: OK") for ln in out) == len(methods)

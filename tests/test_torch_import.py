@@ -40,6 +40,10 @@ MODULES = [
     "fhestring_tpu_torch.ciphertext",
     "fhestring_tpu_torch.client",
     "fhestring_tpu_torch.server",
+    "fhestring_tpu_torch.utils",
+    "fhestring_tpu_torch.cli",
+    "fhestring_tpu_torch.tools.stepwise_sweep",
+    "fhestring_tpu_torch.tools.k3_phases",
     "fhestring_tpu_torch.tools.rotation_sweep",
     "fhestring_tpu_torch.tools.step_breakdown",
     "fhestring_tpu_torch.tools.profile_requests",
@@ -125,6 +129,49 @@ def test_client_key_defaults_to_param_prod(method):
         "params"].default
     assert default is PARAM_PROD
     assert dataclasses.asdict(default) == dataclasses.asdict(jax_default)
+
+
+def test_get_server_key_takes_the_jax_packages_positional_parameters():
+    """``get_server_key(False)`` means "no NTT key" in both packages: the
+    positional parameters agree in name, order and default; the port's
+    ``device`` is keyword-only, and ``cache_path`` raises until the port
+    has ``serialize.py``."""
+    from fhestring_tpu.client import ClientKey as JaxClientKey
+    from fhestring_tpu_torch import PARAM_TEST32_ZERO_NOISE
+    from fhestring_tpu_torch.client import ClientKey
+
+    def positional(cls):
+        return [(p.name, p.default) for p in inspect.signature(
+            cls.get_server_key).parameters.values()
+            if p.kind is inspect.Parameter.POSITIONAL_OR_KEYWORD]
+
+    assert positional(ClientKey) == positional(JaxClientKey) == [
+        ("self", inspect.Parameter.empty), ("with_ntt2", None),
+        ("cache_path", None)]
+    own = inspect.signature(ClientKey.get_server_key).parameters
+    assert own["device"].kind is inspect.Parameter.KEYWORD_ONLY
+    ck = ClientKey(PARAM_TEST32_ZERO_NOISE, seed=1)
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        ck.get_server_key(None, "keys.npz")
+    with pytest.raises(TypeError):
+        ck.get_server_key(None, None, "cpu")
+    assert ck.get_server_key(True, device="cpu").backend.sc.keys \
+        .bsk_ntt32 is not None
+
+
+@pytest.mark.parametrize("name", ["abs_difference", "trim_vector",
+                                  "trim_str_vector",
+                                  "adjust_end_of_pattern"])
+def test_utils_are_the_jax_packages(name):
+    from fhestring_tpu import utils as jutils
+    from fhestring_tpu_torch import utils
+
+    cases = {"abs_difference": [(3, 9), (9, 3), (4, 4)],
+             "trim_vector": [(["", "a", "", "b", ""],), ([],), (["", ""],)],
+             "trim_str_vector": [(["", "a\0\0", ""], True), (["a\0"], False)],
+             "adjust_end_of_pattern": [(5, 2), (2, 5), (3, 3)]}
+    for args in cases[name]:
+        assert getattr(utils, name)(*args) == getattr(jutils, name)(*args)
 
 
 NATIVE_SOURCES = ["csprng.cpp", "keygen.cpp"]

@@ -117,3 +117,44 @@ def test_wrapper_rejects_bad_inputs(inputs, bad):
         dl = dl.transpose(1, 2).contiguous().transpose(1, 2)
     with pytest.raises((TypeError, ValueError)):
         ne.ntt_ext(dl, khat)
+
+
+@pytest.mark.parametrize("cluster", [None, 1, 2, 4])
+def test_every_body_is_the_plain_version_on_the_cpu(inputs, cluster):
+    """``cluster=`` picks the kernel's body on the card; on the CPU every
+    value runs the plain version, adding into ``out`` where asked."""
+    _, key, port_dl = inputs
+    khat = keys.pack_bsk_ntt(key[None], "cpu", keys.KEY_PLANES64)[0]
+    dl = torch.from_numpy(port_dl)
+    want = ne.ntt_ext_plain(dl, khat)
+    assert torch.equal(ne.ntt_ext(dl, khat, cluster=cluster), want)
+    start = torch.arange(want.numel(), dtype=torch.int64).view(want.shape)
+    out = start.clone()
+    assert ne.ntt_ext(dl, khat, out=out, accumulate=True,
+                      cluster=cluster) is out
+    assert torch.equal(out, start + want)
+    assert ne.ntt_ext.launches == 0 and set(ne.ntt_ext.bodies) == {1, 2, 4}
+
+
+@pytest.mark.parametrize("bad", [0, 3, 8, True, "2"])
+def test_wrapper_rejects_other_cluster_values(inputs, bad):
+    _, key, port_dl = inputs
+    khat = keys.pack_bsk_ntt(key[None], "cpu", keys.KEY_PLANES64)[0]
+    with pytest.raises(ValueError):
+        ne.ntt_ext(torch.from_numpy(port_dl), khat, cluster=bad)
+
+
+def test_pick_uses_the_wave_model():
+    """The pick is ``cluster.cluster_size`` with this kernel's wave costs:
+    4 blocks an item while the card has room for the batch, 2 beyond, 1
+    once the batch fills the card."""
+    from fhestring_tpu_torch.crypto.kernels import cluster
+
+    room = {2: 66, 4: 30}
+    picks = {b: cluster.cluster_size(b, 132, 2048, ne.WAVE_COST,
+                                     lambda c, n: room[c])
+             for b in (1, 8, 30, 31, 66, 67, 132, 133, 2048)}
+    assert picks[1] == picks[8] == picks[30] == 4
+    assert picks[66] == 2
+    assert picks[2048] == 1
+    assert all(p in ne.CLUSTERS for p in picks.values())

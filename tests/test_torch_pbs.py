@@ -128,6 +128,25 @@ def test_pbs_batch_matches_jax_fused_and_oracle(setup):
         assert ref.shortint_decrypt(sk, got[i]) == table[m]
 
 
+def test_pbs_batch_takes_the_jax_signatures_use_fused(setup):
+    """A caller written for the JAX signature passes use_fused=True: that
+    is the whole-rotation kernel, the port's default, and it wins over the
+    step-wise keywords as in the JAX package."""
+    p, sk, srv, dev, rng = setup
+    msgs = rng.integers(0, 16, size=8)
+    cts = torus.from_numpy(_encrypt(sk, msgs, rng))
+    idx = torch.zeros(len(msgs), dtype=torch.int64)
+    bank = keys.pack_luts([[(7 * x + 3) % 16 for x in range(16)]], p, "cpu")
+    want = pbs.pbs_batch(cts, idx, bank, dev)
+    assert torch.equal(pbs.pbs_batch(cts, idx, bank, dev, use_fused=True),
+                       want)
+    # a 32-bit set has no step-wise route: use_fused keeps it off that path
+    assert torch.equal(pbs.pbs_batch(cts, idx, bank, dev, use_fused=True,
+                                     use_pallas=True), want)
+    with pytest.raises(ValueError):
+        pbs.pbs_batch(cts, idx, bank, dev, use_pallas=True)
+
+
 def test_pbs_batch_per_item_luts(setup):
     """lut_idx selects a test polynomial per item from the bank."""
     p, sk, srv, dev, rng = setup
