@@ -54,7 +54,7 @@ the phase-8 keys and on a server packed with ``with_ntt2=False``:
     (1 block an item, clusters of 2 and 4), fresh and accumulating; K3's
     step body (digits made inside the launch, three rotating accumulators)
     over the same 4 steps against its plain version and against K5 + K3,
-    and K3 launched overlapped behind K5; each kernel's device time (20
+    and in every cluster size, and K3 launched overlapped behind K5; each kernel's device time (20
     launches captured into a CUDA graph), K4's per body, a step of the K3
     route in its three forms, and for K5 and K3 the eager wall time a
     launch; then on step 0 at each B of SWEEP_B: K3 in the picked body and
@@ -619,6 +619,17 @@ def stepwise_kernels(dkeys, phase, steps=4, batch=8):
                "K3 overlapped behind K5": graph_ms(lambda: two_kernels(True),
                                                    GRAPH_LAUNCHES),
                "K3's step body": graph_ms(step_form, 3 * 7)}
+    want = torus.add(acc, ep.ext_product(rd.rotate_diff_decompose(acc, a),
+                                         limbs))
+    for c in ep.STEP_CLUSTERS:     # every cluster size of the step body
+        out, zero = torch.zeros_like(acc), torch.ones_like(acc)
+        ep.ext_product_step(acc, a, limbs, out=out, zero=zero, cluster=c)
+        if not torch.equal(out, want) or zero.any().item():
+            fail(f"ext_product's step body in clusters of {c} differs from "
+                 f"K5 + K3")
+        step_ms[f"its step body in clusters of {c}"] = graph_ms(
+            lambda: ep.ext_product_step(acc, a, limbs, out=out, zero=zero,
+                                        cluster=c), GRAPH_LAUNCHES)
     print(f"phase {phase} step-wise kernels vs plain: B={batch} N={N}, "
           f"{steps} steps of the prod key, bit-exact, K3 = K4 in every body "
           f"of K4, K3 accumulating = acc + ext, K3's step body over three "

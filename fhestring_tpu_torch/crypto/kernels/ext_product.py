@@ -39,8 +39,9 @@ int64.  Memory per (r, col): 8 int8 [N, N] matrices, 32 MB at N = 2048.
 ``ext_product_step`` is one whole step of the step-wise blind rotation in
 one launch of the same kernel (its step body): the digits are made from the
 accumulator inside the launch (the work of ``rotate_diff_decompose``), by
-the blocks of a thread-block cluster that hand them round in distributed
-shared memory, and the old accumulator is added to the product.  A step
+the blocks of a thread-block cluster (1, 2, 4 or 8 of them) that hand them
+round in distributed shared memory, and the old accumulator is added to
+the product.  A step
 cannot update the accumulator in place (its blocks read it while others
 add), so a rotation runs over three buffers in turn: a step reads one, adds
 into the next, which the step before zeroed, and zeroes the third.  Its
@@ -74,11 +75,14 @@ _FUNCTIONS = {
     "fhe_ext_product": ([_VP, _VP, _VP, _INT, _INT, _INT, _INT, _INT, _INT,
                          _VP], _INT),
     "fhe_ext_product_step": ([_VP, _VP, _VP, _VP, _VP, _INT, _INT, _INT,
-                              _INT, _INT, _VP], _INT),
+                              _INT, _INT, _INT, _VP], _INT),
     "fhe_ext_product_init": ([], _INT),
 }
 FORMS = ("product", "step")  # the kernel's bodies, as ``bodies`` counts them
-STEP_CLUSTER = 8  # blocks of the step body's cluster, at most (N / 128)
+# Blocks of the step body's cluster: the sizes the kernel takes (at most
+# N / 128), and the one taken, the fastest on an H100 at a request's batches
+STEP_CLUSTERS = (1, 2, 4, 8)
+STEP_CLUSTER = 2
 
 
 def build() -> str:
@@ -306,8 +310,8 @@ def ext_product_step_plain(acc: torch.Tensor, amounts: torch.Tensor,
 def ext_product_step(acc: torch.Tensor, amounts: torch.Tensor,
                      key: torch.Tensor, *, out: torch.Tensor,
                      zero: torch.Tensor,
-                     body: tuple[int, int, int] | None = None
-                     ) -> torch.Tensor:
+                     body: tuple[int, int, int] | None = None,
+                     cluster: int | None = None) -> torch.Tensor:
     """One step of the step-wise blind rotation in one launch:
 
         out += acc + ext_product(rotate_diff_decompose(acc, amounts), key)
@@ -320,8 +324,10 @@ def ext_product_step(acc: torch.Tensor, amounts: torch.Tensor,
     zeros on entry, out is the accumulator after the step, and zero is
     ready to be the next step's out: step j of a rotation reads buffer
     j mod 3, adds into buffer (j + 1) mod 3 and zeroes buffer (j + 2) mod 3.
-    body: the kernel's (groups, chunk, split), default ``pick_body``; the
-    result does not depend on it.  Returns out; allocates nothing.
+    body: the kernel's (groups, chunk, split), default ``pick_body``;
+    cluster: how many blocks make a chunk's digits together, one of
+    STEP_CLUSTERS and at most N / 128, default STEP_CLUSTER; the result
+    depends on neither.  Returns out; allocates nothing.
 
     CPU tensors run ``ext_product_step_plain``; CUDA tensors launch the
     kernel's step body (built at first use) and count the launch in
@@ -331,6 +337,12 @@ def ext_product_step(acc: torch.Tensor, amounts: torch.Tensor,
     B, _, N = acc.shape
     if body is not None:
         _check_body(body, N)
+    if cluster is None:
+        cluster = min(STEP_CLUSTER, N // M_TILE)
+    elif (isinstance(cluster, bool) or cluster not in STEP_CLUSTERS
+          or cluster > N // M_TILE):
+        raise ValueError(f"cluster must be one of {STEP_CLUSTERS} and at "
+                         f"most {N // M_TILE} at N = {N}, not {cluster!r}")
     if acc.device.type == "cpu":
         out.add_(ext_product_step_plain(acc, amounts, key))
         zero.zero_()
@@ -343,9 +355,9 @@ def ext_product_step(acc: torch.Tensor, amounts: torch.Tensor,
     with torch.cuda.device(acc.device):
         err = lib.fhe_ext_product_step(
             acc.data_ptr(), amounts.data_ptr(), key.data_ptr(),
-            out.data_ptr(), zero.data_ptr(), B, N, *body,
+            out.data_ptr(), zero.data_ptr(), B, N, *body, cluster,
             torch.cuda.current_stream().cuda_stream)
-    cuda_build.check(lib, err, "ext_product step body")
+    cuda_build.check(lib, err, f"ext_product step body<{cluster}>")
     ext_product.launches += 1
     ext_product.bodies["step"] += 1
     return out

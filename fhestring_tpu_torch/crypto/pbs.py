@@ -170,8 +170,10 @@ def sample_extract(acc: torch.Tensor, p: CryptoParams) -> torch.Tensor:
 # step body alone, over three accumulators.  All give the same bits.  On an
 # NVIDIA H100 80GB HBM3 at 700 W the first is the fastest at a request's
 # batches (a rotation at 5, 8 and 15 items: 8.9, 9.5 and 14.5 ms, against
-# 10.6, 9.4 and 14.3 overlapped and 11.7, 12.2 and 21.1 with the step body;
-# PERF.md), so it is the one taken; the others stay for comparison.
+# 10.6, 9.4 and 14.3 overlapped and 11.7, 12.2 and 21.1 with the step body
+# in clusters of 8; in clusters of 2, its best, a step of it still takes
+# 0.6 to 3.1 us more than K5 and K3; PERF.md), so it is the one taken; the
+# others stay for comparison.
 K3_GRAPH_ROUTES = ("plain", "overlap", "step")
 K3_GRAPH_ROUTE = "plain"
 

@@ -53,7 +53,7 @@
 // from the accumulator: dl = limbs(digit(acc * X^a - acc)), the prologue
 // rotate_decompose.cu, and the step ends in acc += ext.  The step body does
 // all three in this launch.  The blocks that differ only in their
-// coefficient tile (blockIdx.x) read the same digits, so min(8, N / 128) of
+// coefficient tile (blockIdx.x) read the same digits, so 1, 2, 4 or 8 of
 // them form a thread-block cluster: each makes one share of the chunk's digits
 // from the accumulator (the device code of rotate_decompose.cu, ntt64.cuh) and
 // stores the packed limb words into the digit buffer of every block of the
@@ -68,7 +68,10 @@
 // zeroed, and zeroes `zero`, the buffer the next step adds into.  The block
 // with blockIdx.z == 0 of each output tile adds the old accumulator to its
 // partial sum and zeroes its tile of `zero`; kernel boundaries order all
-// three buffers.
+// three buffers.  On an NVIDIA H100 80GB HBM3 at 700 W a cluster of 2 is the
+// fastest at up to 15 items (13.1 us a step at B = 8; 14.6 alone, 14.9 and
+// 15.4 in clusters of 4 and 8), and the two kernels it would replace take
+// 12.1 us: the digits lie on every block's critical path (PERF.md).
 //
 // The overlapped launch.  The other way to shorten a step keeps the two
 // kernels and lets this one start early (programmatic dependent launch):
@@ -439,15 +442,15 @@ int launch(const void* dl, const void* key, void* out, int batch, int n,
   return static_cast<int>(err != cudaSuccess ? err : cudaGetLastError());
 }
 
-// The step body, on clusters of min(kMaxCluster, n / kMt) blocks along x.
+// The step body, on clusters of `cluster` blocks along x.
 template <int kGroups>
 int launch_step(const void* acc, const void* amounts, const void* key,
                 void* out, void* zero, int batch, int n, int chunk, int split,
-                cudaStream_t stream) {
+                int cluster, cudaStream_t stream) {
   const int chunks = 2 * n / chunk;
   cudaLaunchAttribute attr;
   attr.id = cudaLaunchAttributeClusterDimension;
-  attr.val.clusterDim.x = n / kMt < kMaxCluster ? n / kMt : kMaxCluster;
+  attr.val.clusterDim.x = cluster;
   attr.val.clusterDim.y = 1;
   attr.val.clusterDim.z = 1;
   cudaLaunchConfig_t config{};
@@ -536,23 +539,26 @@ extern "C" int fhe_ext_product(const void* dl, const void* key, void* out,
 // key, and zero[...] = 0.  acc, out, zero: u64 [batch, 2, n], three buffers
 // that do not overlap; out holds zeros on entry when the launch is one of a
 // rotation's steps.  amounts: int32 [batch] in [0, 2n).  key, groups, chunk,
-// split: as fhe_ext_product.  Launches on `stream`; returns the cudaError_t
-// of the launch.
+// split: as fhe_ext_product.  cluster: the blocks that make a chunk's digits
+// together, 1, 2, 4 or 8 and at most n / 128.  Launches on `stream`; returns
+// the cudaError_t of the launch.
 extern "C" int fhe_ext_product_step(const void* acc, const void* amounts,
                                     const void* key, void* out, void* zero,
                                     int batch, int n, int groups, int chunk,
-                                    int split, void* stream) {
-  if (!valid(batch, n, chunk, split))
+                                    int split, int cluster, void* stream) {
+  if (!valid(batch, n, chunk, split) || cluster < 1 ||
+      cluster > kMaxCluster || (cluster & (cluster - 1)) ||
+      cluster > n / kMt)
     return static_cast<int>(cudaErrorInvalidValue);
   if (batch == 0) return 0;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (groups) {
     case 1:
       return launch_step<1>(acc, amounts, key, out, zero, batch, n, chunk,
-                            split, s);
+                            split, cluster, s);
     case 2:
       return launch_step<2>(acc, amounts, key, out, zero, batch, n, chunk,
-                            split, s);
+                            split, cluster, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

@@ -6,7 +6,8 @@ For each batch B: K3's device time in each body (groups, chunk, split) that
 fits, fastest first, beside the body ``pick_body`` takes; K4's device time
 in each body (1 block an item, clusters of 2 and 4) beside the body
 ``pick_cluster`` takes; K5's device time; a step of the K3 route in its
-three forms (K5 then K3, K3 overlapped behind K5, K3's step body); and K3's
+three forms (K5 then K3, K3 overlapped behind K5, K3's step body, that one
+also by the size of its cluster); and K3's
 and K5's eager wall time a launch (what the host needs to start one).
 Device times are of 20 launches captured into a CUDA graph.  Every K3 body
 is held bit-identical to the picked one, every K4 body to K3.  The last
@@ -113,6 +114,12 @@ def main() -> None:
                                         repeat),
                  "step body": graph_ms(step_form, 3 * (launches // 3 + 1),
                                        repeat)}
+        spare = torch.zeros_like(acc)
+        for c in ep.STEP_CLUSTERS:  # the body's digits once per c blocks
+            forms[f"step body<{c}>"] = graph_ms(
+                lambda: ep.ext_product_step(acc, amt, limbs, out=out,
+                                            zero=spare, cluster=c),
+                launches, repeat)
         if crossing is None and k4_ms < pick_ms:
             crossing = b
         print(f"B={b}: K3 picked {pick} {pick_ms * 1e3:.2f} us "

@@ -379,13 +379,22 @@ def test_step_form_is_k5_then_k3_then_add(inputs):
     assert torch.equal(acc_t, torus.from_numpy(acc))
     assert (ep.ext_product.launches, ep.ext_product.bodies) == before
     assert set(ep.ext_product.bodies) == {"product", "step"}
+    for cluster in ep.STEP_CLUSTERS:          # the card's choice; same bits
+        if cluster <= N // ep.M_TILE:
+            again = start.clone()
+            ep.ext_product_step(acc_t, a_t, planes, out=again,
+                                zero=torch.empty_like(acc_t), cluster=cluster)
+            assert torch.equal(again, out)
+    assert ep.STEP_CLUSTER in ep.STEP_CLUSTERS
 
 
 @pytest.mark.parametrize("bad", ["no out", "no zero", "out is acc",
                                  "zero is acc", "zero is out",
                                  "zero overlaps out", "out shape",
                                  "zero dtype", "acc shape", "amounts dtype",
-                                 "amounts shape", "key shape", "body"])
+                                 "amounts shape", "key shape", "body",
+                                 "cluster 3", "cluster 16", "cluster True",
+                                 "cluster beyond N / 128"])
 def test_step_form_rejects_bad_inputs(inputs, bad):
     N = inputs[1].shape[-1]
     acc, amounts, key = _step_inputs(N, steps=1, batch=B)
@@ -421,5 +430,10 @@ def test_step_form_rejects_bad_inputs(inputs, bad):
         planes = planes[:, :, :4].contiguous()
     elif bad == "body":
         kwargs["body"] = (1, 128, 3)
+    elif bad == "cluster beyond N / 128":
+        kwargs["cluster"] = 2 * (N // ep.M_TILE)
+        assert kwargs["cluster"] in ep.STEP_CLUSTERS
+    elif bad.startswith("cluster"):
+        kwargs["cluster"] = {"3": 3, "16": 16, "True": True}[bad.split()[1]]
     with pytest.raises((TypeError, ValueError)):
         ep.ext_product_step(acc, amounts, planes, **kwargs)

@@ -672,14 +672,20 @@ def test_ext_product_step_body_matches_k5_then_k3(stepwise, n, B):
         assert torch.equal(ref.cpu(), cpu)
 
 
-@pytest.mark.parametrize("n", [128, 2048])
-def test_ext_product_step_body_in_every_kernel_body(stepwise, n):
+@pytest.mark.parametrize("cluster", ep.STEP_CLUSTERS)
+@pytest.mark.parametrize("n", [128, 512, 2048])
+def test_ext_product_step_body_in_every_kernel_body(stepwise, n, cluster):
+    """Every (groups, chunk, split) of the kernel with every cluster size
+    the polynomial size takes: the same bits."""
+    if cluster > n // ep.M_TILE:
+        pytest.skip("the cluster is at most N / 128 blocks")
     acc, amt, bsk = _step_case(n, 33, 1, stepwise)
     limbs = keys.pack_bsk_limbs(bsk, stepwise)[0]
     want = acc + ep.ext_product(rd.rotate_diff_decompose(acc, amt[0]), limbs)
     for body in _k3_bodies(n):
         out, zero = torch.zeros_like(acc), torch.ones_like(acc)
-        ep.ext_product_step(acc, amt[0], limbs, out=out, zero=zero, body=body)
+        ep.ext_product_step(acc, amt[0], limbs, out=out, zero=zero, body=body,
+                            cluster=cluster)
         assert torch.equal(out, want), body
         assert not zero.any(), body
 
