@@ -51,27 +51,21 @@ the phase-8 keys and on a server packed with ``with_ntt2=False``:
 13. K5, K3 and K4 each against its plain version at B=8 over 4 steps of
     the prod key (step 0 with the amounts 0, N and 2N - 1), bit-exact, K3
     also adding into the accumulator (acc + ext); K4 in each of its bodies
-    (1 block an item, clusters of 2 and 4), fresh and accumulating; K3's
-    step body (digits made inside the launch, three rotating accumulators)
-    over the same 4 steps against its plain version and against K5 + K3,
-    and in every cluster size, and K3 launched overlapped behind K5; each kernel's device time (20
-    launches captured into a CUDA graph), K4's per body, a step of the K3
-    route in its three forms, and for K5 and K3 the eager wall time a
-    launch; then on step 0 at each B of SWEEP_B: K3 in the picked body and
-    in every body of K3_SWEEP_BODIES, fresh, accumulating and as the step
-    body, and K4 in its three bodies, against the plain version;
+    (1 block an item, clusters of 2 and 4), fresh and accumulating; each
+    kernel's device time (20 launches captured into a CUDA graph), K4's
+    per body, a step of the K3 route (K5 then K3), and for K5 and K3 the
+    eager wall time a launch; then on step 0 at each B of SWEEP_B: K3 in
+    the picked body and in every body of K3_SWEEP_BODIES, fresh and
+    accumulating, and K4 in its three bodies, against the plain version;
 14. pbs_batch of B=256 through the K3 route and through the K4 route:
     every output decrypts to table[m] and both equal pbs_batch with K2 in
     its exact mode, bit for bit; K4's launches are counted over its run;
-    then the step loop's graph on the K4 route and in each form of the K3
-    route (K5 then K3; K3 overlapped behind K5; K3's step body): two
-    different batches of one B through one cached graph, and a second B,
-    each with the bits of the eager loop and of K2's exact mode, a replay
-    counting n launches of K5 and of the product kernel (the step form: n
-    of K3's step body and none of K5); the form the port takes must be the
-    fastest of the three within 3%;
-15. the six requests through the ``with_ntt2=False`` server (the K3 route
-    in the form the port takes): outputs equal Python's str, PBS counts
+    then the step loop's graph on both routes: two different batches of
+    one B through one cached graph, and a second B, each with the bits of
+    the eager loop and of K2's exact mode, a replay counting n launches of
+    K5 and of the route's product kernel;
+15. the six requests through the ``with_ntt2=False`` server (the K3
+    route): outputs equal Python's str, PBS counts
     equal PROD_COUNTS, K5 and K3 launch n times per PBS batch and K2 never;
     each request's wall time and the share of it the card spent in the
     replayed step graphs;
@@ -83,9 +77,7 @@ The ported CLI (``fhestring_tpu_torch.cli``), which makes its own keys:
     benchmarks/methods.py: all 52 method variants pass against Python's
     str and each row's (PBS, batches) equals TURBO_COUNTS, its PBS also
     the row of benchmarks/methods_turbo_r5c.jsonl;
-18. the same at ``--params prod`` against the 52 rows of PROD_COUNTS; on a
-    card so slow that this would pass 700 s since the start, the 20
-    variants of CLI_PROD_SUBSET.
+18. the same at ``--params prod`` against the 52 rows of PROD_COUNTS.
 
 Then one JSON line describing the five kernels, each with its time beside
 its bound: the least time the card could take, the larger of its bytes over
@@ -498,11 +490,8 @@ def stepwise_kernels(dkeys, phase, steps=4, batch=8):
     the prod key at B=batch, the accumulator advancing by K3's product
     (added by K3 itself, and held against acc + ext); step 0 takes the
     amounts 0, N and 2N - 1.  K4 in each of its bodies, fresh and adding
-    into the accumulator.  K3's step body runs the same steps over three
-    rotating buffers and is held, step by step, against its plain version
-    and against K5 + K3; so is K3 launched overlapped behind K5.  Returns
-    {name: (max |diff|, kernel ms, plain ms)}, the times of step 0: the
-    kernel's device time (``tools.graph_ms``: GRAPH_LAUNCHES launches
+    into the accumulator.  Returns {name: (max |diff|, kernel ms, plain
+    ms)}, the times of step 0: the kernel's device time (``tools.graph_ms``: GRAPH_LAUNCHES launches
     captured into a CUDA graph; timing launches are not counted), the plain
     version's one run after a warm-up."""
     import torch
@@ -523,10 +512,7 @@ def stepwise_kernels(dkeys, phase, steps=4, batch=8):
                         generator=gen)
     amt[0, :3] = torch.tensor([0, N, 2 * N - 1], dtype=torch.int32)
     amt = amt.to(dev)
-    # the step body's three buffers: the third starts dirty
-    bufs = [acc.clone(), torch.zeros_like(acc), torch.full_like(acc, 7)]
-    overlapped = acc.clone()
-    result, wall, step_ms, k4_ms = {}, {}, {}, {}
+    result, wall, k4_ms = {}, {}, {}
     for j in range(steps):
         a, limbs, khat = amt[j], dkeys.bsk_limbs[j], dkeys.bsk_ntt64[j]
         dl = rd.rotate_diff_decompose(acc, a)
@@ -581,59 +567,21 @@ def stepwise_kernels(dkeys, phase, steps=4, batch=8):
                     dl, khat, out=ext_out, accumulate=True, cluster=c),
                     GRAPH_LAUNCHES)
         want = torus.add(acc, outs["ext_product"])
-        # the step's three forms, each from the accumulator before it
-        src, dst, nxt = (bufs[(j + k) % 3] for k in range(3))
-        plain_step = ep.ext_product_step_plain(src, a, limbs)
-        ep.ext_product_step(src, a, limbs, out=dst, zero=nxt)
-        rd.rotate_diff_decompose(overlapped, a, out=dl_out)
-        ep.ext_product(dl_out, limbs, out=overlapped, accumulate=True,
-                       overlap=True)
         acc = ep.ext_product(dl, limbs, out=acc, accumulate=True)
         if not torch.equal(acc, want):
             fail(f"ext_product(accumulate=True) differs from acc + ext at "
                  f"step {j}")
-        err = max(max_abs_err(dst, plain_step), max_abs_err(dst, acc))
-        if err or nxt.any().item():
-            fail(f"ext_product's step body differs from its plain version or "
-                 f"from K5 + K3 at step {j} (max |diff| {err}), or left its "
-                 f"third buffer dirty")
-        if not torch.equal(overlapped, acc):
-            fail(f"ext_product launched overlapped differs at step {j}")
-    # one step's device time in each form of the K3 route, at step 0
+    # one step of the K3 route on the device, at step 0
     a, limbs = amt[0], dkeys.bsk_limbs[0]
-    turn = [0]
 
-    def step_form():
-        j = turn[0]
-        turn[0] += 1
-        ep.ext_product_step(bufs[j % 3], a, limbs, out=bufs[(j + 1) % 3],
-                            zero=bufs[(j + 2) % 3])
-
-    def two_kernels(overlap):
+    def two_kernels():
         rd.rotate_diff_decompose(acc, a, out=dl_out)
-        ep.ext_product(dl_out, limbs, out=acc, accumulate=True,
-                       overlap=overlap)
+        ep.ext_product(dl_out, limbs, out=acc, accumulate=True)
 
-    step_ms = {"K5 then K3": graph_ms(lambda: two_kernels(False),
-                                      GRAPH_LAUNCHES),
-               "K3 overlapped behind K5": graph_ms(lambda: two_kernels(True),
-                                                   GRAPH_LAUNCHES),
-               "K3's step body": graph_ms(step_form, 3 * 7)}
-    want = torus.add(acc, ep.ext_product(rd.rotate_diff_decompose(acc, a),
-                                         limbs))
-    for c in ep.STEP_CLUSTERS:     # every cluster size of the step body
-        out, zero = torch.zeros_like(acc), torch.ones_like(acc)
-        ep.ext_product_step(acc, a, limbs, out=out, zero=zero, cluster=c)
-        if not torch.equal(out, want) or zero.any().item():
-            fail(f"ext_product's step body in clusters of {c} differs from "
-                 f"K5 + K3")
-        step_ms[f"its step body in clusters of {c}"] = graph_ms(
-            lambda: ep.ext_product_step(acc, a, limbs, out=out, zero=zero,
-                                        cluster=c), GRAPH_LAUNCHES)
+    step_ms = graph_ms(two_kernels, GRAPH_LAUNCHES)
     print(f"phase {phase} step-wise kernels vs plain: B={batch} N={N}, "
           f"{steps} steps of the prod key, bit-exact, K3 = K4 in every body "
-          f"of K4, K3 accumulating = acc + ext, K3's step body over three "
-          f"buffers = its plain version = K5 + K3, K3 overlapped = K5 + K3; "
+          f"of K4, K3 accumulating = acc + ext; "
           f"device time of a launch (a graph of "
           f"{GRAPH_LAUNCHES}): " + "; ".join(
               f"{name} kernel {ms:.4f} ms, plain {plain_ms:.3f} ms "
@@ -642,8 +590,7 @@ def stepwise_kernels(dkeys, phase, steps=4, batch=8):
           + "; ntt_ext by body " + ", ".join(
               f"<{c}> {ms:.4f} ms" for c, ms in k4_ms.items())
           + f" (picked <{ne.pick_cluster(batch, N, dev.index or 0)}>)"
-          + "; a step of the K3 route: " + ", ".join(
-              f"{name} {ms:.4f} ms" for name, ms in step_ms.items())
+          + f"; a step of the K3 route (K5 then K3) {step_ms:.4f} ms"
           + "; eager wall time of a launch: " + ", ".join(
               f"{name} {ms:.4f} ms" for name, ms in wall.items()))
     picked = ne.pick_cluster(batch, N, dev.index or 0)
@@ -657,9 +604,8 @@ def stepwise_batches(dkeys, phase):
     """K5, K3 and K4 against their plain versions on step 0 of the prod key
     at each B of SWEEP_B: K3 in the body ``pick_body`` takes and in every
     body of K3_SWEEP_BODIES, returning a fresh tensor and adding into an
-    accumulator, and as its step body (digits made in the launch) in those
-    bodies; K4 in each of its bodies, fresh and accumulating; all equal to
-    the plain version."""
+    accumulator; K4 in each of its bodies, fresh and accumulating; all
+    equal to the plain version."""
     import torch
 
     from fhestring_tpu_torch.crypto.kernels import ext_product as ep
@@ -694,13 +640,6 @@ def stepwise_batches(dkeys, phase):
             got[f"ntt_ext<{c}>"] = ne.ntt_ext(dl, khat, cluster=c)
             got[f"ntt_ext<{c}> accumulating"] = ne.ntt_ext(
                 dl, khat, out=acc.clone(), accumulate=True, cluster=c) - acc
-        for body in (None,) + K3_SWEEP_BODIES:
-            out, zero = torch.zeros_like(acc), torch.full_like(acc, 7)
-            ep.ext_product_step(acc, a, limbs, out=out, zero=zero, body=body)
-            if zero.any().item():
-                fail(f"ext_product's step body {body} left its third buffer "
-                     f"dirty at B={b}")
-            got[f"ext_product step body {body}"] = out - acc
         for name, out in got.items():
             if not torch.equal(out, want):
                 fail(f"{name} differs from ext_product's plain version at "
@@ -710,9 +649,8 @@ def stepwise_batches(dkeys, phase):
     print(f"phase {phase} step-wise kernels vs plain by batch: N={N}, step 0 "
           f"of the prod key, K5, K3 and K4 bit-exact; picked (groups, chunk, "
           f"split) and blocks per item " + ", ".join(picked) + f"; and K3 "
-          f"in each of {len(K3_SWEEP_BODIES)} more bodies, fresh, "
-          f"accumulating and as the step body, and K4 in its 3 bodies, fresh "
-          f"and accumulating, bit-exact at every B")
+          f"in each of {len(K3_SWEEP_BODIES)} more bodies and K4 in its 3 "
+          f"bodies, fresh and accumulating, bit-exact at every B")
 
 
 STEPWISE_ROUTES = {"K3": {"use_pallas": True}, "K4": {"use_ntt2": True}}
@@ -761,16 +699,12 @@ def stepwise_pbs(client, dkeys, bank, phase):
 
 
 def stepwise_graph(dkeys, phase, batches=(15, 5)):
-    """The step loop's CUDA graph on the K4 route and in each form of the
-    K3 route (``pbs.K3_GRAPH_ROUTES``): at the first B of `batches` two
-    different inputs through one cached graph, then one at the second B;
-    every result has the bits of the eager loop and of K2's exact mode,
-    each B captures once, and a replay counts n launches of K5 and of the
-    route's product kernel, or, in the K3 route's step form, n of K3's step
-    body and none of K5.  A capture or a replay that raises fails the run.
-    The replay times say which form of the K3 route is the fastest; the
-    one the port takes may not be slower than the others beyond the spread
-    of a replay (3%)."""
+    """The step loop's CUDA graph on both routes: at the first B of
+    `batches` two different inputs through one cached graph, then one at the
+    second B; every result has the bits of the eager loop and of K2's exact
+    mode, each B captures once, and a replay counts n launches of K5 and of
+    the route's product kernel.  A capture or a replay that raises fails
+    the run."""
     import torch
 
     from fhestring_tpu_torch.crypto import pbs
@@ -782,15 +716,9 @@ def stepwise_graph(dkeys, phase, batches=(15, 5)):
     dev = dkeys.bsk_limbs.device
     N, n = dkeys.params.polynomial_size, dkeys.params.lwe_dimension
     gen = torch.Generator().manual_seed(phase)
-    taken = pbs.K3_GRAPH_ROUTE
-    routes = [("K4", True, taken)] + [(f"K3 {form}", False, form)
-                                      for form in pbs.K3_GRAPH_ROUTES]
-    line, replay_ms = [], {}
-    for label, use_ntt2, form in routes:
-        pbs.K3_GRAPH_ROUTE = form
+    line = []
+    for label, use_ntt2 in (("K3", False), ("K4", True)):
         product = ne.ntt_ext if use_ntt2 else ep.ext_product
-        step_form = not use_ntt2 and form == "step"
-        want_counts = (0, n, n) if step_form else (n, n, 0)
         times = []
         for b, turns in zip(batches, (2, 1)):
             held = len(pbs._STEP_GRAPHS)
@@ -799,25 +727,21 @@ def stepwise_graph(dkeys, phase, batches=(15, 5)):
                                     dtype=torch.int64, generator=gen).to(dev)
                 amt = torch.randint(0, 2 * N, (b, n), dtype=torch.int32,
                                     generator=gen).to(dev)
-                before = (rd.rotate_diff_decompose.launches, product.launches,
-                          ep.ext_product.bodies["step"])
+                before = rd.rotate_diff_decompose.launches, product.launches
                 t0 = time.perf_counter()
                 got = pbs._blind_rotate_stepwise(acc, amt, dkeys, use_ntt2)
                 torch.cuda.synchronize()
                 times.append(f"B={b} {(time.perf_counter() - t0) * 1e3:.1f} ms"
                              + (" (with the capture)" if turn == 0 else ""))
                 counted = (rd.rotate_diff_decompose.launches - before[0],
-                           product.launches - before[1],
-                           ep.ext_product.bodies["step"] - before[2])
-                if counted != want_counts:
+                           product.launches - before[1])
+                if counted != (n, n):
                     fail(f"{label} route: a replay counted {counted} launches "
-                         f"of (K5, the product kernel, K3's step body), not "
-                         f"{want_counts}")
+                         f"of (K5, the product kernel), not {(n, n)}")
                 if turn:
-                    replay_ms[label, b] = cuda_ms(
-                        lambda: pbs._blind_rotate_stepwise(acc, amt, dkeys,
-                                                           use_ntt2), 3)[0]
-                    times[-1] = f"B={b} {replay_ms[label, b]:.2f} ms"
+                    ms = cuda_ms(lambda: pbs._blind_rotate_stepwise(
+                        acc, amt, dkeys, use_ntt2), 3)[0]
+                    times[-1] = f"B={b} {ms:.2f} ms"
                 t0 = time.perf_counter()
                 eager = pbs._blind_rotate_stepwise(acc, amt, dkeys, use_ntt2,
                                                    graph=False)
@@ -834,16 +758,8 @@ def stepwise_graph(dkeys, phase, batches=(15, 5)):
                 fail(f"{label} route: B={b} captured "
                      f"{len(pbs._STEP_GRAPHS) - held} graphs, not 1")
         line.append(f"{label} route " + ", ".join(times))
-    pbs.K3_GRAPH_ROUTE = taken
-    b = batches[0]
-    best = min(replay_ms[f"K3 {form}", b] for form in pbs.K3_GRAPH_ROUTES)
-    if replay_ms[f"K3 {taken}", b] > 1.03 * best:
-        fail(f"the K3 route takes the {taken!r} form, "
-             f"{replay_ms[f'K3 {taken}', b]:.2f} ms a rotation at B={b}, but "
-             f"another form takes {best:.2f} ms")
     print(f"phase {phase} step-loop graph: {n} steps replayed from one graph "
-          f"per (route, form, B), bit-identical to the eager loop and to K2 "
-          f"exact; the K3 route takes the {taken!r} form; "
+          f"per (route, B), bit-identical to the eager loop and to K2 exact; "
           + "; ".join(line))
 
 
@@ -873,18 +789,10 @@ def stepwise_throughput(client, dkeys, bank, phase):
           + "; ".join(line))
 
 
-# The fixed subset of the PARAM_PROD CLI run, for a card so slow that all
-# 52 would not fit the script's time: split, replace, strip, trim, compare
-# and the rest of the families.
-CLI_PROD_SUBSET = ("Contains", "EndsWithClear", "EqIgnoreCase", "FindClear",
-                   "Rfind", "Repeat", "ReplaceN", "RsplitOnce", "SplitClear",
-                   "SplitAsciiWhitespace", "SplitTerminator", "SplitNClear",
-                   "StripPrefix", "StripSuffixClear", "ToLower", "Trim",
-                   "Concatenate", "Lt", "Ge", "Ne")
 CLI_ROW = re.compile(r"(\w+) (\d+\.\d+)s \[(\d+) PBS in (\d+) batches\]$")
 
 
-def cli_on_the_card(params_name, table, phase, methods=None):
+def cli_on_the_card(params_name, table, phase):
     """The ported CLI (``fhestring_tpu_torch.cli.main``) on the card, with
     the arguments of benchmarks/methods.py: every variant's line must say
     ``Test Passed`` and carry the table's (PBS, batches); the closing line
@@ -899,8 +807,8 @@ def cli_on_the_card(params_name, table, phase, methods=None):
 
     argv = ["--string", S, "--pattern", PAT, "--n", "2", "--from", "o",
             "--to", "0", "--params", params_name, "--device", "cuda",
-            "--metrics"] + (["--methods", *methods] if methods else [])
-    methods = list(methods or cli.METHODS)
+            "--metrics"]
+    methods = list(cli.METHODS)
     out = io.StringIO()
     t0 = time.perf_counter()
     with contextlib.redirect_stdout(out):
@@ -937,7 +845,6 @@ def cli_on_the_card(params_name, table, phase, methods=None):
           f"every row's (PBS, batches) equal to the table: {total[0]} PBS in "
           f"{total[1]} batches; {seconds:.1f} s with keygen and packing, the "
           f"slowest {slowest[0]} {slowest[1]:.1f} s")
-    return seconds
 
 
 def main() -> int:
@@ -961,7 +868,6 @@ def main() -> int:
     from fhestring_tpu_torch.crypto.kernels import rotate_decompose as rd
 
     dev = torch.device("cuda")
-    t_start = time.perf_counter()
 
     # 1. device ---------------------------------------------------------------
     name, count = torch.cuda.get_device_name(0), torch.cuda.device_count()
@@ -1066,10 +972,10 @@ def main() -> int:
     from fhestring_tpu_torch.crypto import pbs
     spans, replay = [], pbs._replay_steps
 
-    def timed_replay(entry):
+    def timed_replay(entry, use_ntt2):
         start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
         start.record()
-        replay(entry)
+        replay(entry, use_ntt2)
         end.record()
         spans.append((start, end))
 
@@ -1085,12 +991,8 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # -- the ported CLI, all 52 method variants, on the card ------------------
-    spent = cli_on_the_card("turbo", TURBO_COUNTS, 17)
-    # PARAM_PROD costs about 1.5 times the turbo run: all 52 unless that
-    # would pass 700 s since the start, else the fixed subset
-    all_fit = time.perf_counter() - t_start + 1.6 * spent < 700
-    cli_on_the_card("prod", PROD_COUNTS, 18,
-                    None if all_fit else CLI_PROD_SUBSET)
+    cli_on_the_card("turbo", TURBO_COUNTS, 17)
+    cli_on_the_card("prod", PROD_COUNTS, 18)
 
     # One step at the batch of phase 13: K3 and K4 compute the same function
     # (the exact mode's 44 transforms, 21 (la, lb) pairs x 4 (r, col)

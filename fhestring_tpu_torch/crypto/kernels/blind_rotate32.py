@@ -66,7 +66,8 @@ _INT = ctypes.c_int
 _FUNCTIONS = {
     "fhe_blind_rotate32": (
         [_VP, _VP, _VP, _VP, _VP, _INT, _INT, _INT, _INT, _VP], _INT),
-    "fhe_blind_rotate32_max_clusters": ([_INT, _INT], _INT)}
+    "fhe_blind_rotate32_max_clusters": ([_INT, _INT], _INT),
+    "fhe_blind_rotate32_init": ([], _INT)}
 
 
 def max_plane_value(num_r: int, n: int) -> int:
@@ -79,6 +80,11 @@ def build() -> str:
     Returns the path of the shared library."""
     cuda_build.load("blind_rotate32", _FUNCTIONS)
     return cuda_build.library_path("blind_rotate32")
+
+
+def _library(device_index: int) -> ctypes.CDLL:
+    return cuda_build.ready("blind_rotate32", _FUNCTIONS, "fhe_blind_rotate32_init",
+                            device_index)
 
 
 def _check(acc_hi: torch.Tensor, amounts: torch.Tensor,
@@ -166,7 +172,7 @@ def max_active_clusters(device_index: int, cluster: int, n: int) -> int:
     """How many clusters of ``cluster`` blocks the device runs at once at
     polynomial size n (``cudaOccupancyMaxActiveClusters``); raises if the
     device refuses the body."""
-    lib = cuda_build.load("blind_rotate32", _FUNCTIONS)
+    lib = _library(device_index)
     with torch.cuda.device(device_index):
         count = lib.fhe_blind_rotate32_max_clusters(n, cluster)
     cuda_build.check(lib, max(-count, 0), "blind_rotate32 cluster occupancy")
@@ -195,7 +201,7 @@ def blind_rotate32(acc_hi: torch.Tensor, amounts: torch.Tensor,
         return blind_rotate32_plain(acc_hi, amounts, khat)
     if acc_hi.device.type != "cuda":
         raise ValueError(f"no blind-rotation kernel for {acc_hi.device}")
-    lib = cuda_build.load("blind_rotate32", _FUNCTIONS)
+    lib = _library(acc_hi.device.index)
     B, _, N = acc_hi.shape
     if cluster is None:
         cluster = pick_cluster(B, N, acc_hi.device.index)

@@ -84,7 +84,8 @@ _FUNCTIONS = {
     "fhe_blind_rotate64": (
         [_VP, _VP, _VP, _VP, _VP, _INT, _INT, _INT, _INT, _INT, _INT, _VP],
         _INT),
-    "fhe_blind_rotate64_max_clusters": ([_INT, _INT, _INT, _INT], _INT)}
+    "fhe_blind_rotate64_max_clusters": ([_INT, _INT, _INT, _INT], _INT),
+    "fhe_blind_rotate64_init": ([], _INT)}
 
 
 def max_plane_value(n: int) -> int:
@@ -103,6 +104,11 @@ def build() -> str:
     Returns the path of the shared library."""
     cuda_build.load("blind_rotate64", _FUNCTIONS)
     return cuda_build.library_path("blind_rotate64")
+
+
+def _library(device_index: int) -> ctypes.CDLL:
+    return cuda_build.ready("blind_rotate64", _FUNCTIONS, "fhe_blind_rotate64_init",
+                            device_index)
 
 
 def _check(acc: torch.Tensor, amounts: torch.Tensor,
@@ -219,7 +225,7 @@ def max_active_clusters(device_index: int, cluster: int, n: int,
     """How many clusters of ``cluster`` blocks the device runs at once at
     polynomial size n in this mode (``cudaOccupancyMaxActiveClusters``; the
     modes differ in shared memory); raises if the device refuses the body."""
-    lib = cuda_build.load("blind_rotate64", _FUNCTIONS)
+    lib = _library(device_index)
     with torch.cuda.device(device_index):
         count = lib.fhe_blind_rotate64_max_clusters(n, int(rounded),
                                                     int(approx), cluster)
@@ -252,7 +258,7 @@ def blind_rotate64(acc: torch.Tensor, amounts: torch.Tensor,
                                     approx=approx)
     if acc.device.type != "cuda":
         raise ValueError(f"no blind-rotation kernel for {acc.device}")
-    lib = cuda_build.load("blind_rotate64", _FUNCTIONS)
+    lib = _library(acc.device.index)
     B, _, N = acc.shape
     if cluster is None:
         cluster = pick_cluster(B, N, acc.device.index, rounded=rounded,

@@ -36,20 +36,8 @@ multiplies them with the digit limbs by ``torch._int_mm`` (int8 x int8 ->
 int32, exact: |sum| <= N * 128 * 128), then recombines the shift planes in
 int64.  Memory per (r, col): 8 int8 [N, N] matrices, 32 MB at N = 2048.
 
-``ext_product_step`` is one whole step of the step-wise blind rotation in
-one launch of the same kernel (its step body): the digits are made from the
-accumulator inside the launch (the work of ``rotate_diff_decompose``), by
-the blocks of a thread-block cluster (1, 2, 4 or 8 of them) that hand them
-round in distributed shared memory, and the old accumulator is added to
-the product.  A step
-cannot update the accumulator in place (its blocks read it while others
-add), so a rotation runs over three buffers in turn: a step reads one, adds
-into the next, which the step before zeroed, and zeroes the third.  Its
-plain version is ``acc + ext_product_plain(rotate_diff_decompose_plain(acc,
-a), key)``.
-
-On a CPU tensor the wrappers run the plain versions; on a CUDA tensor they
-launch the kernel or raise.
+On a CPU tensor the wrapper runs the plain version; on a CUDA tensor it
+launches the kernel or raises.
 """
 
 from __future__ import annotations
@@ -61,7 +49,6 @@ import torch
 from .. import keys
 from . import blind_rotate64 as br64
 from . import cuda_build
-from . import rotate_decompose as rd
 
 MIN_N = 128  # smallest polynomial size the kernel takes
 GROUPS = (1, 2)  # 8-item groups per block: the kernel's kGroups bodies
@@ -72,17 +59,10 @@ SHARED_MEMORY = 232448  # bytes a block may use on an H100
 _VP = ctypes.c_void_p
 _INT = ctypes.c_int
 _FUNCTIONS = {
-    "fhe_ext_product": ([_VP, _VP, _VP, _INT, _INT, _INT, _INT, _INT, _INT,
-                         _VP], _INT),
-    "fhe_ext_product_step": ([_VP, _VP, _VP, _VP, _VP, _INT, _INT, _INT,
-                              _INT, _INT, _INT, _VP], _INT),
+    "fhe_ext_product": ([_VP, _VP, _VP, _INT, _INT, _INT, _INT, _INT, _VP],
+                        _INT),
     "fhe_ext_product_init": ([], _INT),
 }
-FORMS = ("product", "step")  # the kernel's bodies, as ``bodies`` counts them
-# Blocks of the step body's cluster: the sizes the kernel takes (at most
-# N / 128), and the one taken, the fastest on an H100 at a request's batches
-STEP_CLUSTERS = (1, 2, 4, 8)
-STEP_CLUSTER = 2
 
 
 def build() -> str:
@@ -145,34 +125,22 @@ def _check_body(body, n: int) -> None:
                          f"at N = {n}")
 
 
-def _check_key(key: torch.Tensor) -> int:
-    """Raise unless key is one step of ``bsk_limbs``; its polynomial size."""
-    if key.dtype != torch.int8:
+def _check(dl: torch.Tensor, key: torch.Tensor) -> None:
+    if dl.dtype != torch.int8 or key.dtype != torch.int8:
         raise TypeError("dl and key must be int8")
-    if key.dim() != 4:
-        raise ValueError("expected key [k+1, k+1, 8, 2N]")
+    if dl.dim() != 3 or key.dim() != 4:
+        raise ValueError("expected dl [3, B, (k+1)*N] and key "
+                         "[k+1, k+1, 8, 2N]")
     kp1, N = br64.GLWE_ROWS, key.shape[-1] // 2
     if tuple(key.shape) != (kp1, kp1, keys.KEY_PLANES64, 2 * N):
         raise ValueError(f"unsupported key shape {tuple(key.shape)}")
     if N & (N - 1) or not MIN_N <= N <= 2048:
         raise ValueError(f"unsupported polynomial size {N}")
-    if not key.is_contiguous():
-        raise ValueError("inputs must be contiguous")
-    return N
-
-
-def _check(dl: torch.Tensor, key: torch.Tensor) -> None:
-    if dl.dtype != torch.int8:
-        raise TypeError("dl and key must be int8")
-    if dl.dim() != 3:
-        raise ValueError("expected dl [3, B, (k+1)*N] and key "
-                         "[k+1, k+1, 8, 2N]")
-    N = _check_key(key)
-    if dl.shape[0] != br64.DIGIT_LIMBS or dl.shape[2] != br64.GLWE_ROWS * N:
+    if dl.shape[0] != br64.DIGIT_LIMBS or dl.shape[2] != kp1 * N:
         raise ValueError(f"dl shape {tuple(dl.shape)} does not match the key")
     if dl.device != key.device:
         raise ValueError("dl and key on different devices")
-    if not dl.is_contiguous():
+    if not (dl.is_contiguous() and key.is_contiguous()):
         raise ValueError("inputs must be contiguous")
 
 
@@ -216,8 +184,7 @@ def ext_product_plain(dl: torch.Tensor, key: torch.Tensor) -> torch.Tensor:
 
 def ext_product(dl: torch.Tensor, key: torch.Tensor,
                 out: torch.Tensor | None = None, accumulate: bool = False,
-                body: tuple[int, int, int] | None = None,
-                overlap: bool = False) -> torch.Tensor:
+                body: tuple[int, int, int] | None = None) -> torch.Tensor:
     """One step's external product.
 
     dl: int8 [3, B, (k+1)*N] digit limbs (``rotate_diff_decompose``);
@@ -227,11 +194,7 @@ def ext_product(dl: torch.Tensor, key: torch.Tensor,
     allocation then); with accumulate=True the product is added to out (mod
     2^64) instead, the step ``acc += ext`` in one launch.  body: the
     kernel's (groups, chunk, split), default ``pick_body``; the result does
-    not depend on it.  overlap: launch with programmatic stream
-    serialization: the kernel may start while the kernel before it on the
-    stream (``rotate_diff_decompose`` writing dl) still runs, stages its
-    first key window, and waits for that kernel to end before it reads dl
-    or adds into out; same result.
+    not depend on it.
 
     CPU tensors run ``ext_product_plain``; CUDA tensors launch the kernel
     (built at first use) and count the launch in ``ext_product.launches``.
@@ -243,9 +206,6 @@ def ext_product(dl: torch.Tensor, key: torch.Tensor,
         cuda_build.check_out(out, (B, kp1, N), torch.int64, dl.device)
     elif accumulate:
         raise ValueError("accumulate=True needs out")
-    if overlap and not accumulate:
-        # zeroing out first would put a kernel between the prologue and this
-        raise ValueError("overlap=True needs out= and accumulate=True")
     if body is not None:
         _check_body(body, N)
     if dl.device.type == "cpu":
@@ -266,102 +226,10 @@ def ext_product(dl: torch.Tensor, key: torch.Tensor,
     with torch.cuda.device(dl.device):
         err = lib.fhe_ext_product(
             dl.data_ptr(), key.data_ptr(), out.data_ptr(), B, N, *body,
-            int(overlap), torch.cuda.current_stream().cuda_stream)
+            torch.cuda.current_stream().cuda_stream)
     cuda_build.check(lib, err, "ext_product")
     ext_product.launches += 1
-    ext_product.bodies["product"] += 1
-    return out
-
-
-def _shares_memory(a: torch.Tensor, b: torch.Tensor) -> bool:
-    """Whether two contiguous tensors share memory."""
-    a0, b0 = a.data_ptr(), b.data_ptr()
-    return (a0 < b0 + b.numel() * b.element_size()
-            and b0 < a0 + a.numel() * a.element_size())
-
-
-def _check_step(acc: torch.Tensor, amounts: torch.Tensor, key: torch.Tensor,
-                out: torch.Tensor, zero: torch.Tensor) -> None:
-    N = _check_key(key)
-    rd._check(acc, amounts)
-    if tuple(acc.shape[1:]) != (br64.GLWE_ROWS, N):
-        raise ValueError(f"acc shape {tuple(acc.shape)} does not match the "
-                         f"key (expected [B, {br64.GLWE_ROWS}, {N}])")
-    if acc.device != key.device:
-        raise ValueError("acc and key on different devices")
-    for name, buf in (("out", out), ("zero", zero)):
-        if buf is None:
-            raise ValueError(f"the step form needs {name}=")
-        cuda_build.check_out(buf, tuple(acc.shape), torch.int64, acc.device)
-    if (_shares_memory(acc, out) or _shares_memory(acc, zero)
-            or _shares_memory(out, zero)):
-        raise ValueError("acc, out and zero must be three buffers that do "
-                         "not overlap")
-
-
-def ext_product_step_plain(acc: torch.Tensor, amounts: torch.Tensor,
-                           key: torch.Tensor) -> torch.Tensor:
-    """The plain PyTorch version of a step: acc + ext_product_plain(
-    rotate_diff_decompose_plain(acc, amounts), key) mod 2^64."""
-    dl = rd.rotate_diff_decompose_plain(acc, amounts)
-    return acc + ext_product_plain(dl, key)
-
-
-def ext_product_step(acc: torch.Tensor, amounts: torch.Tensor,
-                     key: torch.Tensor, *, out: torch.Tensor,
-                     zero: torch.Tensor,
-                     body: tuple[int, int, int] | None = None,
-                     cluster: int | None = None) -> torch.Tensor:
-    """One step of the step-wise blind rotation in one launch:
-
-        out += acc + ext_product(rotate_diff_decompose(acc, amounts), key)
-        zero[:] = 0                                          (mod 2^64)
-
-    acc: int64 [B, k+1, N], the accumulator before the step (read only);
-    amounts: int32 [B] in [0, 2N), the step's rotation amounts; key: int8
-    [k+1, k+1, 8, 2N] (``DeviceServerKeys.bsk_limbs[j]``); out, zero: int64
-    [B, k+1, N].  The three buffers must not overlap.  With out holding
-    zeros on entry, out is the accumulator after the step, and zero is
-    ready to be the next step's out: step j of a rotation reads buffer
-    j mod 3, adds into buffer (j + 1) mod 3 and zeroes buffer (j + 2) mod 3.
-    body: the kernel's (groups, chunk, split), default ``pick_body``;
-    cluster: how many blocks make a chunk's digits together, one of
-    STEP_CLUSTERS and at most N / 128, default STEP_CLUSTER; the result
-    depends on neither.  Returns out; allocates nothing.
-
-    CPU tensors run ``ext_product_step_plain``; CUDA tensors launch the
-    kernel's step body (built at first use) and count the launch in
-    ``ext_product.launches`` and in ``ext_product.bodies["step"]``.
-    """
-    _check_step(acc, amounts, key, out, zero)
-    B, _, N = acc.shape
-    if body is not None:
-        _check_body(body, N)
-    if cluster is None:
-        cluster = min(STEP_CLUSTER, N // M_TILE)
-    elif (isinstance(cluster, bool) or cluster not in STEP_CLUSTERS
-          or cluster > N // M_TILE):
-        raise ValueError(f"cluster must be one of {STEP_CLUSTERS} and at "
-                         f"most {N // M_TILE} at N = {N}, not {cluster!r}")
-    if acc.device.type == "cpu":
-        out.add_(ext_product_step_plain(acc, amounts, key))
-        zero.zero_()
-        return out
-    if acc.device.type != "cuda":
-        raise ValueError(f"no external-product kernel for {acc.device}")
-    lib = _library(acc.device.index)
-    if body is None:
-        body = pick_body(B, N, cuda_build.sm_count(acc.device.index))
-    with torch.cuda.device(acc.device):
-        err = lib.fhe_ext_product_step(
-            acc.data_ptr(), amounts.data_ptr(), key.data_ptr(),
-            out.data_ptr(), zero.data_ptr(), B, N, *body, cluster,
-            torch.cuda.current_stream().cuda_stream)
-    cuda_build.check(lib, err, f"ext_product step body<{cluster}>")
-    ext_product.launches += 1
-    ext_product.bodies["step"] += 1
     return out
 
 
 ext_product.launches = 0
-ext_product.bodies = dict.fromkeys(FORMS, 0)

@@ -29,19 +29,8 @@ and K4 add their product into the accumulator themselves, so the eager
 loop is 2 launches a step.  On the card the n steps are captured once per
 (route, batch, key) into a CUDA graph over static buffers and replayed for
 every later batch of that shape: the host makes one graph launch instead of
-2n kernel launches.  The graph of the K3 route has three forms with the
-same bits (``K3_GRAPH_ROUTE``): K5 and K3 one after the other; K3 launched
-to start beside K5 (programmatic dependent launch: it stages its key window
-and then waits for K5); or one launch a step, K3's step body
-(``ext_product_step``), which makes the digits itself, K5's work, and runs
-over three accumulators in turn,
-
-    for j in range(n):
-        buf[(j+1) % 3] += buf[j % 3] + ext(digits(buf[j % 3], a_j), key_j)
-        buf[(j+2) % 3]  = 0
-
-with buf[1] zero at the start and the result in buf[n % 3].  On the CPU
-the loop is a plain Python loop over the plain versions.
+2n kernel launches.  On the CPU the loop is a plain Python loop over the
+plain versions.
 """
 
 from __future__ import annotations
@@ -164,54 +153,22 @@ def sample_extract(acc: torch.Tensor, p: CryptoParams) -> torch.Tensor:
     return torch.cat([a.reshape(acc.shape[0], -1), acc[:, k, :1]], dim=-1)
 
 
-# How the captured graph runs a step of the K3 route: "plain": K5, then K3,
-# one after the other; "overlap": K5, then K3 launched so that it starts
-# beside K5 and waits for it once its key window is staged; "step": K3's
-# step body alone, over three accumulators.  All give the same bits.  On an
-# NVIDIA H100 80GB HBM3 at 700 W the first is the fastest at a request's
-# batches (a rotation at 5, 8 and 15 items: 8.9, 9.5 and 14.5 ms, against
-# 10.6, 9.4 and 14.3 overlapped and 11.7, 12.2 and 21.1 with the step body
-# in clusters of 8; in clusters of 2, its best, a step of it still takes
-# 0.6 to 3.1 us more than K5 and K3; PERF.md), so it is the one taken; the
-# others stay for comparison.
-K3_GRAPH_ROUTES = ("plain", "overlap", "step")
-K3_GRAPH_ROUTE = "plain"
-
-
 def _run_steps(acc: torch.Tensor, steps: torch.Tensor, key: torch.Tensor,
-               use_ntt2: bool, dl: torch.Tensor | None = None,
-               overlap: bool = False) -> torch.Tensor:
+               use_ntt2: bool, dl: torch.Tensor | None = None
+               ) -> torch.Tensor:
     """The n steps, eagerly, updating acc in place: K5, then K3 or K4
     adding into acc.  steps: int32 [n, B].  dl: the steps' digit buffer
-    (allocated here if not given).  overlap: K3 launched to start beside
-    K5 (``ext_product(overlap=True)``).  Nothing in the loop allocates or
-    reads back to the host, so it can be captured."""
+    (allocated here if not given).  Nothing in the loop allocates or reads
+    back to the host, so it can be captured."""
     B, kp1, N = acc.shape
     if dl is None:
         dl = torch.empty((br64.DIGIT_LIMBS, B, kp1 * N), dtype=torch.int8,
                          device=acc.device)
+    product = ne.ntt_ext if use_ntt2 else ep.ext_product
     for j in range(steps.shape[0]):
         rd.rotate_diff_decompose(acc, steps[j], out=dl)
-        if use_ntt2:
-            ne.ntt_ext(dl, key[j], out=acc, accumulate=True)
-        else:
-            ep.ext_product(dl, key[j], out=acc, accumulate=True,
-                           overlap=overlap)
+        product(dl, key[j], out=acc, accumulate=True)
     return acc
-
-
-def _run_steps_rotating(bufs: tuple, steps: torch.Tensor,
-                        key: torch.Tensor) -> torch.Tensor:
-    """The n steps of the K3 route, one launch each, over three
-    accumulators in turn (module docstring).  bufs[0]: the accumulator;
-    bufs[1] is zeroed here.  Returns the buffer that holds the result,
-    bufs[n % 3].  Nothing allocates, so it can be captured."""
-    bufs[1].zero_()
-    n = steps.shape[0]
-    for j in range(n):
-        ep.ext_product_step(bufs[j % 3], steps[j], key[j],
-                            out=bufs[(j + 1) % 3], zero=bufs[(j + 2) % 3])
-    return bufs[n % 3]
 
 
 @dataclasses.dataclass
@@ -219,14 +176,12 @@ class _StepGraph:
     """The captured steps of one (route, batch, key) and their buffers."""
     graph: torch.cuda.CUDAGraph
     key: torch.Tensor          # kept alive: the graph holds its address
-    acc: torch.Tensor          # int64 [B, k+1, N], the input
-    result: torch.Tensor       # where a replay leaves the output
+    acc: torch.Tensor          # int64 [B, k+1, N], in and out
     steps: torch.Tensor        # int32 [n, B]
-    # the steps' buffers: the graph writes them at every replay, so they
-    # must not go back to the allocator while it lives
-    scratch: tuple
-    # what one replay launches: [(wrapper, launches, {body: launches})]
-    launched: list
+    # the steps' digit buffer: the graph writes it at every replay, so it
+    # must not go back to the allocator while the graph lives
+    dl: torch.Tensor
+    k4_body: int | None        # the body of K4 the capture picked (K4 route)
 
 
 STEP_GRAPHS_KEPT = 16  # least recently used graphs beyond this are dropped
@@ -239,52 +194,36 @@ def _capture_steps(shape: tuple, n: int, key: torch.Tensor,
     """Capture the n steps at accumulator shape [B, k+1, N] into a CUDA
     graph over buffers of its own.  The kernels are built and loaded first
     (a capture can do neither); no kernel runs during the capture, so the
-    wrappers' launch counts are put back after it and kept for the
-    replays."""
-    if K3_GRAPH_ROUTE not in K3_GRAPH_ROUTES:
-        raise ValueError(f"K3_GRAPH_ROUTE must be one of {K3_GRAPH_ROUTES}")
+    wrappers' launch counts are put back after it."""
     dev = key.device
-    rotating = not use_ntt2 and K3_GRAPH_ROUTE == "step"
-    if not rotating:
-        rd.prepare(dev)
+    rd.prepare(dev)
+    k4_body = None
     if use_ntt2:
         ne.prepare(dev, shape[-1])
+        k4_body = ne.pick_cluster(shape[0], shape[-1], dev.index)
     else:
         ep.prepare(dev)
-    counted = (rd.rotate_diff_decompose, ne.ntt_ext, ep.ext_product)
+    product = ne.ntt_ext if use_ntt2 else ep.ext_product
     acc = torch.zeros(shape, dtype=torch.int64, device=dev)
     steps = torch.zeros((n, shape[0]), dtype=torch.int32, device=dev)
-    if rotating:
-        scratch = (torch.zeros_like(acc), torch.zeros_like(acc))
-    else:
-        scratch = (torch.empty((br64.DIGIT_LIMBS, shape[0],
-                                shape[1] * shape[2]), dtype=torch.int8,
-                               device=dev),)
+    dl = torch.empty((br64.DIGIT_LIMBS, shape[0], shape[1] * shape[2]),
+                     dtype=torch.int8, device=dev)
     graph = torch.cuda.CUDAGraph()
-    counts = [(f.launches, dict(getattr(f, "bodies", {}))) for f in counted]
+    counts = rd.rotate_diff_decompose.launches, product.launches
+    bodies = dict(ne.ntt_ext.bodies)
     try:
         with torch.cuda.graph(graph):
-            if rotating:
-                result = _run_steps_rotating((acc,) + scratch, steps, key)
-            else:
-                result = _run_steps(acc, steps, key, use_ntt2, scratch[0],
-                                    overlap=K3_GRAPH_ROUTE == "overlap")
+            _run_steps(acc, steps, key, use_ntt2, dl)
     finally:
-        launched = []
-        for f, (launches, bodies) in zip(counted, counts):
-            launched.append((f, f.launches - launches,
-                             {b: f.bodies[b] - c for b, c in bodies.items()}))
-            f.launches = launches
-            if bodies:
-                f.bodies.update(bodies)
-    return _StepGraph(graph, key, acc, result, steps, scratch, launched)
+        rd.rotate_diff_decompose.launches, product.launches = counts
+        ne.ntt_ext.bodies.update(bodies)
+    return _StepGraph(graph, key, acc, steps, dl, k4_body)
 
 
 def _step_graph(shape: tuple, n: int, key: torch.Tensor,
                 use_ntt2: bool) -> _StepGraph:
     """The cached graph of that accumulator shape, route and key tensor."""
-    ident = (use_ntt2 or K3_GRAPH_ROUTE, tuple(shape), n, key.device,
-             key.data_ptr())
+    ident = (use_ntt2, tuple(shape), n, key.device, key.data_ptr())
     entry = _STEP_GRAPHS.get(ident)
     if entry is None:
         entry = _STEP_GRAPHS[ident] = _capture_steps(shape, n, key, use_ntt2)
@@ -294,26 +233,28 @@ def _step_graph(shape: tuple, n: int, key: torch.Tensor,
     return entry
 
 
-def _replay_steps(entry: _StepGraph) -> None:
+def _replay_steps(entry: _StepGraph, use_ntt2: bool) -> None:
     """Replay the captured steps on the entry's buffers.  A replay runs no
-    wrapper, so it adds the launches its capture counted: n of K5 and n of
-    the route's product kernel, or on the K3 route's "step" form n of K3's
-    step body and none of K5."""
+    wrapper, so it counts its kernel nodes itself: n launches of K5 and n
+    of the route's product kernel (K4's also by body)."""
     entry.graph.replay()
-    for wrapper, launches, bodies in entry.launched:
-        wrapper.launches += launches
-        for body, count in bodies.items():
-            wrapper.bodies[body] += count
+    n = entry.steps.shape[0]
+    rd.rotate_diff_decompose.launches += n
+    if use_ntt2:
+        ne.ntt_ext.launches += n
+        ne.ntt_ext.bodies[entry.k4_body] += n
+    else:
+        ep.ext_product.launches += n
 
 
 def _blind_rotate_stepwise(acc: torch.Tensor, amounts: torch.Tensor,
                            keys: DeviceServerKeys, use_ntt2: bool,
                            graph: bool = True) -> torch.Tensor:
-    """The step-wise 64-bit route.  On a CUDA device the steps are replayed
-    from a captured graph, K5 and the product kernel or K3's step body
-    (``K3_GRAPH_ROUTE``; graph=False: K5 and the product kernel launched
-    one by one, for comparison); a failed capture or replay raises.  On
-    the CPU the steps run one by one on the plain versions."""
+    """The step-wise 64-bit route: per step K5, then K3 or K4 adding into
+    the accumulator.  On a CUDA device the steps are replayed from a
+    captured graph (graph=False: launched one by one, for comparison); a
+    failed capture or replay raises.  On the CPU the steps run one by one
+    on the plain versions."""
     key = keys.bsk_ntt64 if use_ntt2 else keys.bsk_limbs
     if key is None:
         raise ValueError("the step-wise route needs "
@@ -325,8 +266,8 @@ def _blind_rotate_stepwise(acc: torch.Tensor, amounts: torch.Tensor,
     entry = _step_graph(acc.shape, steps.shape[0], key, use_ntt2)
     entry.acc.copy_(acc)
     entry.steps.copy_(steps)
-    _replay_steps(entry)
-    return entry.result.clone()
+    _replay_steps(entry, use_ntt2)
+    return entry.acc.clone()
 
 
 def blind_rotate(acc: torch.Tensor, lwe_2n: torch.Tensor,

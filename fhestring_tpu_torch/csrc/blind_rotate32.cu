@@ -263,12 +263,31 @@ struct Spec {
   }
 };
 
+// Bytes of shared memory of the one-block body.
+constexpr size_t smem_bytes(int n) {
+  return static_cast<size_t>(kRows + kOut) * n * 4 +
+         static_cast<size_t>(kOut) * n * 2;
+}
+
 bool valid(int n, int cluster) {
   return n >= 64 && n <= 2048 && !(n & (n - 1)) &&
          (cluster == 1 || cluster == 2 || cluster == 4);
 }
 
 }  // namespace
+
+// Once per device, before the first launch: loads the kernels and lets every
+// body use the shared memory of N = 2048.  Returns a cudaError_t.
+extern "C" int fhe_blind_rotate32_init() {
+  cudaError_t err = cudaFuncSetAttribute(
+      blind_rotate32_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem_bytes(2048)));
+  if (err == cudaSuccess)
+    err = rotate_cluster::allow_shared_memory<Spec, 2>(2048);
+  if (err == cudaSuccess)
+    err = rotate_cluster::allow_shared_memory<Spec, 4>(2048);
+  return static_cast<int>(err);
+}
 
 // acc_in, acc_out: int32 [batch, 2, n]; amounts: int32 [batch, n_steps];
 // khat: u16 [n_steps, 2, 6, 8, n]; tw: u32 [2 primes, 2 (fwd, inv), n,
@@ -292,13 +311,8 @@ extern "C" int fhe_blind_rotate32(const void* acc_in, void* acc_out,
     return rotate_cluster::launch<Spec, 4>(
         acc_in, acc_out, static_cast<const int32_t*>(amounts), khat, tw,
         batch, n_steps, n, log_n, s);
-  const size_t smem = static_cast<size_t>(kRows + kOut) * n * 4 +
-                      static_cast<size_t>(kOut) * n * 2;
-  cudaError_t err = cudaFuncSetAttribute(
-      blind_rotate32_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
   if (batch == 0) return 0;
+  const size_t smem = smem_bytes(n);
   blind_rotate32_kernel<<<batch, kThreads, smem, s>>>(
       static_cast<const int32_t*>(acc_in), static_cast<int32_t*>(acc_out),
       static_cast<const int32_t*>(amounts),

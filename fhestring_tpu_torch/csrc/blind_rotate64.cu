@@ -193,6 +193,26 @@ struct Spec : ClusterProduct<kApprox> {
   }
 };
 
+// Bytes of shared memory of the one-block body.
+template <bool kApprox>
+constexpr size_t smem_bytes(int n) {
+  return static_cast<size_t>(kRows) * n * 8 +
+         static_cast<size_t>(Planes<kApprox>::kOut) * n * (4 + 2);
+}
+
+// Lets the three bodies of a mode use the shared memory of N = 2048.
+template <bool kRounded, bool kApprox>
+cudaError_t allow_shared_memory() {
+  using S = Spec<kRounded, kApprox>;
+  cudaError_t err = cudaFuncSetAttribute(
+      blind_rotate64_kernel<kRounded, kApprox>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem_bytes<kApprox>(2048)));
+  if (err == cudaSuccess) err = rotate_cluster::allow_shared_memory<S, 2>(2048);
+  if (err == cudaSuccess) err = rotate_cluster::allow_shared_memory<S, 4>(2048);
+  return err;
+}
+
 template <bool kRounded, bool kApprox>
 int launch(const void* acc_in, void* acc_out, const void* amounts,
            const void* khat, const void* tw, int batch, int n_steps, int n,
@@ -206,15 +226,9 @@ int launch(const void* acc_in, void* acc_out, const void* amounts,
     return rotate_cluster::launch<S, 4>(
         acc_in, acc_out, static_cast<const int32_t*>(amounts), khat, tw,
         batch, n_steps, n, log_n, stream);
-  constexpr int kOut = Planes<kApprox>::kOut;
-  const size_t smem = static_cast<size_t>(kRows) * n * 8 +
-                      static_cast<size_t>(kOut) * n * (4 + 2);
-  auto kernel = blind_rotate64_kernel<kRounded, kApprox>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
   if (batch == 0) return 0;
+  auto kernel = blind_rotate64_kernel<kRounded, kApprox>;
+  const size_t smem = smem_bytes<kApprox>(n);
   kernel<<<batch, kThreads, smem, stream>>>(
       static_cast<const uint64_t*>(acc_in), static_cast<uint64_t*>(acc_out),
       static_cast<const int32_t*>(amounts),
@@ -236,6 +250,17 @@ bool valid(int n, int cluster) {
 }
 
 }  // namespace
+
+// Once per device, before the first launch: loads the kernels and lets every
+// body of every mode use the shared memory of N = 2048.  Returns a
+// cudaError_t.
+extern "C" int fhe_blind_rotate64_init() {
+  cudaError_t err = allow_shared_memory<false, false>();
+  if (err == cudaSuccess) err = allow_shared_memory<true, false>();
+  if (err == cudaSuccess) err = allow_shared_memory<false, true>();
+  if (err == cudaSuccess) err = allow_shared_memory<true, true>();
+  return static_cast<int>(err);
+}
 
 // acc_in, acc_out: u64 [batch, 2, n]; amounts: int32 [batch, n_steps];
 // khat: u16 [n_steps, 2 primes, 2 digit rows, 16, n]; tw: u32 [2 primes,

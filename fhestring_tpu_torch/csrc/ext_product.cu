@@ -49,37 +49,6 @@
 // 34 KB at chunk = 512 and one group; the strides are padded so that a
 // warp's fragment loads fall in 32 different banks.
 //
-// The step body (kStepBody).  In the step-wise blind rotation the digits come
-// from the accumulator: dl = limbs(digit(acc * X^a - acc)), the prologue
-// rotate_decompose.cu, and the step ends in acc += ext.  The step body does
-// all three in this launch.  The blocks that differ only in their
-// coefficient tile (blockIdx.x) read the same digits, so 1, 2, 4 or 8 of
-// them form a thread-block cluster: each makes one share of the chunk's digits
-// from the accumulator (the device code of rotate_decompose.cu, ntt64.cuh) and
-// stores the packed limb words into the digit buffer of every block of the
-// cluster through distributed shared memory, while each stages its own key
-// window; one cluster barrier, then the product loop as above.  A block
-// stores into a peer only between two cluster barriers: the first shows
-// that the peer has started (first chunk) or is done reading the chunk
-// before, the second orders the stores before the peers' reads.  The step
-// cannot run in place (a block would read accumulator words that another
-// block's atomics of the same step have changed), so it runs over three
-// buffers: it reads `acc`, adds acc + ext into `out`, which the step before
-// zeroed, and zeroes `zero`, the buffer the next step adds into.  The block
-// with blockIdx.z == 0 of each output tile adds the old accumulator to its
-// partial sum and zeroes its tile of `zero`; kernel boundaries order all
-// three buffers.  On an NVIDIA H100 80GB HBM3 at 700 W a cluster of 2 is the
-// fastest at up to 15 items (13.1 us a step at B = 8; 14.6 alone, 14.9 and
-// 15.4 in clusters of 4 and 8), and the two kernels it would replace take
-// 12.1 us: the digits lie on every block's critical path (PERF.md).
-//
-// The overlapped launch.  The other way to shorten a step keeps the two
-// kernels and lets this one start early (programmatic dependent launch):
-// rotate_decompose.cu releases its dependents as it starts, this kernel's
-// blocks come up beside it, zero their fragments and stage their first key
-// window, which depends on nothing before, and only then wait
-// (griddepcontrol.wait) for the prologue to end before they read dl.
-//
 // What bounds it.  3.5e8 int8 multiply-adds an item and step at N = 2048
 // (4 (r, col) x 21 (la, lb) pairs x N^2), 0.36 us at the tensor cores' 1,979
 // TOP/s.  mma.sync starts about one m16n8k32 product every 7 cycles a
@@ -89,15 +58,10 @@
 // device memory) and the atomics are as long as the products; a batch below
 // 8 items wastes the rest of its n8 tile.
 
-#include <cooperative_groups.h>
 #include <cstdint>
 #include <cuda_runtime.h>
 
-#include "ntt64.cuh"  // the digit rule, shared with rotate_decompose.cu
-
 namespace {
-
-namespace cg = cooperative_groups;
 
 constexpr int kRows = 2;       // k + 1 = digit rows R at ell = 1
 constexpr int kLimbs = 3;      // balanced int8 limbs of a digit
@@ -108,9 +72,6 @@ constexpr int kWarps = 4;
 constexpr int kMt = 16 * kTiles * kWarps;  // coefficients t per block
 constexpr int kThreads = 32 * kWarps;
 constexpr int kItems = 8;      // batch items of one n8 tile
-constexpr int kMaxCluster = 8; // blocks of the step body's cluster, at most
-static_assert(kRows == ntt64::kRows && kLimbs == ntt64::kLimbs,
-              "the digit rule is ntt64.cuh's");
 
 // Words between two copies of a plane: the window's (chunk + kMt) / 4 rounded
 // up to 8 mod 32 (chunk is a multiple of 128), so the 4 copies a warp reads
@@ -144,86 +105,12 @@ __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_all;" ::: "memory");
 }
 
-__device__ __forceinline__ void cluster_arrive() {
-  asm volatile("barrier.cluster.arrive.release.aligned;" ::: "memory");
-}
-
-__device__ __forceinline__ void cluster_wait() {
-  asm volatile("barrier.cluster.wait.acquire.aligned;" ::: "memory");
-}
-
-// The step body's share of a chunk's digits.  The cluster's blocks split the
-// chunk's digit indices c_lo .. c_lo + chunk of digit row r evenly; this
-// block makes the 3 limbs of its share for the kItems * kGroups items from
-// b0 (zeros past the batch), 4 neighbouring coefficients a thread and turn,
-// and stores each packed word into the digit buffer bw of every block of
-// the cluster.  (Starting a thread's accumulator loads before the key
-// window is staged was tried and gained nothing: PERF.md.)
 template <int kGroups>
-__device__ __forceinline__ void make_digits(
-    uint32_t* bw, int sb, const uint64_t* __restrict__ acc,
-    const int32_t* __restrict__ amounts, int batch, int n, int b0, int r,
-    int c_lo, int chunk) {
-  cg::cluster_group cluster = cg::this_cluster();
-  const int blocks = static_cast<int>(cluster.num_blocks());
-  const int rank = static_cast<int>(cluster.block_rank());
-  const int words = chunk / 4 / blocks;  // packed words an item: >= 4
-  uint32_t* peer[kMaxCluster];
-#pragma unroll
-  for (int p = 0; p < kMaxCluster; ++p)
-    peer[p] = p < blocks ? cluster.map_shared_rank(bw, p) : nullptr;
-  for (int idx = threadIdx.x; idx < kItems * kGroups * words;
-       idx += kThreads) {
-    const int item = idx / words;
-    const int w = rank * words + idx - item * words;  // word of the chunk
-    const int b = b0 + item;
-    uint32_t packed[kLimbs] = {0, 0, 0};
-    if (b < batch) {
-      const int a = amounts[b];
-      const int t = c_lo + 4 * w;
-      const uint64_t* base = acc + (static_cast<size_t>(b) * kRows + r) * n;
-      const ulonglong2 h0 = *reinterpret_cast<const ulonglong2*>(base + t);
-      const ulonglong2 h1 = *reinterpret_cast<const ulonglong2*>(base + t + 2);
-      const uint64_t here[4] = {h0.x, h0.y, h1.x, h1.y};
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int src = (t + i - a) & (2 * n - 1);
-        const uint64_t from = base[src & (n - 1)];
-        const uint64_t rot = src >= n ? 0ull - from : from;
-        int limb[kLimbs];
-        ntt64::digit_limbs(ntt64::exact_digit(rot - here[i]), limb);
-#pragma unroll
-        for (int la = 0; la < kLimbs; ++la)
-          packed[la] |= (static_cast<uint32_t>(limb[la]) & 255u) << (8 * i);
-      }
-    }
-#pragma unroll
-    for (int p = 0; p < kMaxCluster; ++p) {
-      if (p >= blocks) break;
-#pragma unroll
-      for (int la = 0; la < kLimbs; ++la)
-        peer[p][(la * kItems * kGroups + item) * sb + w] = packed[la];
-    }
-  }
-}
-
-// The kernel's forms.  kProduct: out += ext(dl, key).  kOverlap: the same,
-// launched with programmatic stream serialization: it waits for the kernel
-// before it once its first key window is staged.  kStepBody, on a cluster
-// along blockIdx.x: out += acc + ext(limbs(digit(acc * X^a - acc)), key) and
-// zero = 0 (the header's step body); dl is not read.
-enum Form { kProduct, kOverlap, kStepBody };
-
-template <int kGroups, Form kForm>
 __global__ void __launch_bounds__(kThreads)
 ext_product_kernel(const int8_t* __restrict__ dl,
                    const int8_t* __restrict__ key,
                    unsigned long long* __restrict__ out, int batch, int n,
-                   int chunk, int per_block,
-                   const uint64_t* __restrict__ acc_in,
-                   const int32_t* __restrict__ amounts,
-                   unsigned long long* __restrict__ zero) {
-  constexpr bool kStep = kForm == kStepBody;
+                   int chunk, int per_block) {
   extern __shared__ uint32_t smem[];
   const int sa = stride_a(chunk), sb = stride_b(chunk);
   uint32_t* aw = smem;                               // [8][4][sa]
@@ -246,33 +133,25 @@ ext_product_kernel(const int8_t* __restrict__ dl,
 #pragma unroll
         for (int i = 0; i < 4; ++i) acc[s][m][q][i] = 0;
 
-  if (kStep) cluster_arrive();  // this block has started
-  const int last = (blockIdx.z + 1) * per_block;
-  for (int ch = blockIdx.z * per_block; ch < last; ++ch) {
+  for (int ch = blockIdx.z * per_block; ch < (blockIdx.z + 1) * per_block;
+       ++ch) {
     const int r = (ch * chunk) / n;
     const int c_lo = (ch * chunk) & (n - 1);
 
     // Stage the digits of the chunk: dl[la][b][r * n + c_lo + .], 16 bytes
     // an asynchronous copy, all in flight at once; items past the batch are
     // zero.
-    auto stage_digits = [&]() {
-      const int vecs = chunk / 16;
-      for (int idx = threadIdx.x; idx < kLimbs * kItems * kGroups * vecs;
-           idx += kThreads) {
-        const int row = idx / vecs, v = idx - row * vecs;
-        const int la = row / (kItems * kGroups);
-        const int b = b0 + row - la * (kItems * kGroups);
-        const int8_t* src =
-            dl + la * limb_stride +
-            static_cast<size_t>(b < batch ? b : 0) * kRows * n + r * n +
-            c_lo + 16 * v;
-        cp_async_16(bw + row * sb + 4 * v, src, b < batch);
-      }
-    };
-    // An overlapped launch (header) may not read dl yet: its first key
-    // window comes first.
-    const bool early = kForm == kOverlap && ch == blockIdx.z * per_block;
-    if (kForm == kProduct || (kForm == kOverlap && !early)) stage_digits();
+    const int vecs = chunk / 16;
+    for (int idx = threadIdx.x; idx < kLimbs * kItems * kGroups * vecs;
+         idx += kThreads) {
+      const int row = idx / vecs, v = idx - row * vecs;
+      const int la = row / (kItems * kGroups);
+      const int b = b0 + row - la * (kItems * kGroups);
+      const int8_t* src = dl + la * limb_stride +
+                          static_cast<size_t>(b < batch ? b : 0) * kRows * n +
+                          r * n + c_lo + 16 * v;
+      cp_async_16(bw + row * sb + 4 * v, src, b < batch);
+    }
 
     // Stage the 8 limb planes, all 4 copies at once: byte x of the window
     // is P at (t_lo + kMt - c_lo - x) mod 2N, which is byte (x + c_lo - t_lo
@@ -303,26 +182,8 @@ ext_product_kernel(const int8_t* __restrict__ dl,
             __funnelshift_r(w.y, w.z, sh), __funnelshift_r(w.z, w.w, sh));
       }
     }
-    if (kStep) {
-      // Every block of the cluster has started, or is done with the digits
-      // of the chunk before: their buffers may be written.  The barrier
-      // after the stores orders them before the product loop's reads (and
-      // is the block's own barrier for the key window).
-      cluster_wait();
-      make_digits<kGroups>(bw, sb, acc_in, amounts, batch, n, b0, r, c_lo,
-                           chunk);
-      cluster_arrive();
-      cluster_wait();
-    } else {
-      if (kForm == kOverlap && early) {
-        // The kernel before this one in the stream (the prologue that
-        // writes dl, and through it every earlier writer of out) is done.
-        asm volatile("griddepcontrol.wait;" ::: "memory");
-        stage_digits();
-      }
-      cp_async_wait_all();
-      __syncthreads();
-    }
+    cp_async_wait_all();
+    __syncthreads();
 
     // Row t' = 32 warp + g + 8 e (e = 0..3: the two rows of the warp's two
     // m16 tiles) reads the copy t' mod 4 = g mod 4 at word (c' + kMt) / 4 -
@@ -373,12 +234,9 @@ ext_product_kernel(const int8_t* __restrict__ dl,
       }
     }
     __syncthreads();
-    if (kStep && ch + 1 < last) cluster_arrive();  // done with these digits
   }
 
-  // ext = sum_s sign_extend64(plane_s) << 8s, added to the output; the step
-  // body's first block of a tile adds the old accumulator as well and zeroes
-  // the tile of the buffer the next step adds into.
+  // ext = sum_s sign_extend64(plane_s) << 8s, added to the output.
 #pragma unroll
   for (int m = 0; m < kTiles; ++m)
 #pragma unroll
@@ -393,12 +251,8 @@ ext_product_kernel(const int8_t* __restrict__ dl,
         for (int s = 0; s < kKeyPlanes; ++s)
           sum += static_cast<uint64_t>(static_cast<int64_t>(acc[s][m][q][i]))
                  << (8 * s);
-        const size_t at = (static_cast<size_t>(b) * kRows + col) * n + t;
-        if (kStep && blockIdx.z == 0) {
-          sum += acc_in[at];
-          zero[at] = 0ull;
-        }
-        atomicAdd(out + at, static_cast<unsigned long long>(sum));
+        atomicAdd(out + (static_cast<size_t>(b) * kRows + col) * n + t,
+                  static_cast<unsigned long long>(sum));
       }
 }
 
@@ -408,85 +262,32 @@ size_t smem_bytes(int groups, int chunk) {
          sizeof(uint32_t);
 }
 
-dim3 grid_of(int batch, int n, int groups, int split) {
-  return dim3(n / kMt,
-              kRows * ((batch + kItems * groups - 1) / (kItems * groups)),
-              split);
-}
-
-// overlap: launch with programmatic stream serialization, so that the
-// kernel may start while the one before it in the stream still runs.
 template <int kGroups>
 int launch(const void* dl, const void* key, void* out, int batch, int n,
-           int chunk, int split, bool overlap, cudaStream_t stream) {
+           int chunk, int split, cudaStream_t stream) {
   const int chunks = 2 * n / chunk;
-  cudaLaunchAttribute attr;
-  attr.id = cudaLaunchAttributeProgrammaticStreamSerialization;
-  attr.val.programmaticStreamSerializationAllowed = 1;
-  cudaLaunchConfig_t config{};
-  config.gridDim = grid_of(batch, n, kGroups, split);
-  config.blockDim = dim3(kThreads);
-  config.dynamicSmemBytes = smem_bytes(kGroups, chunk);
-  config.stream = stream;
-  config.attrs = &attr;
-  config.numAttrs = overlap ? 1 : 0;
-  const cudaError_t err = cudaLaunchKernelEx(
-      &config,
-      overlap ? ext_product_kernel<kGroups, kOverlap>
-              : ext_product_kernel<kGroups, kProduct>,
+  const dim3 grid(n / kMt,
+                  kRows * ((batch + kItems * kGroups - 1) / (kItems * kGroups)),
+                  split);
+  ext_product_kernel<kGroups><<<grid, kThreads, smem_bytes(kGroups, chunk),
+                               stream>>>(
       static_cast<const int8_t*>(dl), static_cast<const int8_t*>(key),
-      static_cast<unsigned long long*>(out), batch, n, chunk, chunks / split,
-      static_cast<const uint64_t*>(nullptr),
-      static_cast<const int32_t*>(nullptr),
-      static_cast<unsigned long long*>(nullptr));
-  return static_cast<int>(err != cudaSuccess ? err : cudaGetLastError());
-}
-
-// The step body, on clusters of `cluster` blocks along x.
-template <int kGroups>
-int launch_step(const void* acc, const void* amounts, const void* key,
-                void* out, void* zero, int batch, int n, int chunk, int split,
-                int cluster, cudaStream_t stream) {
-  const int chunks = 2 * n / chunk;
-  cudaLaunchAttribute attr;
-  attr.id = cudaLaunchAttributeClusterDimension;
-  attr.val.clusterDim.x = cluster;
-  attr.val.clusterDim.y = 1;
-  attr.val.clusterDim.z = 1;
-  cudaLaunchConfig_t config{};
-  config.gridDim = grid_of(batch, n, kGroups, split);
-  config.blockDim = dim3(kThreads);
-  config.dynamicSmemBytes = smem_bytes(kGroups, chunk);
-  config.stream = stream;
-  config.attrs = &attr;
-  config.numAttrs = 1;
-  const cudaError_t err = cudaLaunchKernelEx(
-      &config, ext_product_kernel<kGroups, kStepBody>,
-      static_cast<const int8_t*>(nullptr), static_cast<const int8_t*>(key),
-      static_cast<unsigned long long*>(out), batch, n, chunk, chunks / split,
-      static_cast<const uint64_t*>(acc), static_cast<const int32_t*>(amounts),
-      static_cast<unsigned long long*>(zero));
-  return static_cast<int>(err != cudaSuccess ? err : cudaGetLastError());
+      static_cast<unsigned long long*>(out), batch, n, chunk, chunks / split);
+  return static_cast<int>(cudaGetLastError());
 }
 
 // Let the kernel use the block's whole shared memory, and have the SM split
 // its memory in favour of shared memory, so that as many blocks are
 // resident as their shared memory allows.
-template <int kGroups, Form kForm>
+template <int kGroups>
 cudaError_t allow_shared_memory(int bytes) {
   cudaError_t err = cudaFuncSetAttribute(
-      ext_product_kernel<kGroups, kForm>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+      ext_product_kernel<kGroups>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      bytes);
   if (err != cudaSuccess) return err;
-  return cudaFuncSetAttribute(ext_product_kernel<kGroups, kForm>,
+  return cudaFuncSetAttribute(ext_product_kernel<kGroups>,
                               cudaFuncAttributePreferredSharedMemoryCarveout,
                               cudaSharedmemCarveoutMaxShared);
-}
-
-bool valid(int batch, int n, int chunk, int split) {
-  return n >= 128 && n <= 2048 && !(n & (n - 1)) && batch >= 0 &&
-         chunk >= 128 && chunk <= n && chunk % 128 == 0 && split >= 1 &&
-         (2 * n / chunk) % split == 0;
 }
 
 }  // namespace
@@ -500,12 +301,8 @@ extern "C" int fhe_ext_product_init() {
   if (err == cudaSuccess)
     err = cudaDeviceGetAttribute(&bytes, cudaDevAttrMaxSharedMemoryPerBlockOptin,
                                  device);
-  if (err == cudaSuccess) err = allow_shared_memory<1, kProduct>(bytes);
-  if (err == cudaSuccess) err = allow_shared_memory<2, kProduct>(bytes);
-  if (err == cudaSuccess) err = allow_shared_memory<1, kOverlap>(bytes);
-  if (err == cudaSuccess) err = allow_shared_memory<2, kOverlap>(bytes);
-  if (err == cudaSuccess) err = allow_shared_memory<1, kStepBody>(bytes);
-  if (err == cudaSuccess) err = allow_shared_memory<2, kStepBody>(bytes);
+  if (err == cudaSuccess) err = allow_shared_memory<1>(bytes);
+  if (err == cudaSuccess) err = allow_shared_memory<2>(bytes);
   return static_cast<int>(err);
 }
 
@@ -515,50 +312,19 @@ extern "C" int fhe_ext_product_init() {
 // the accumulator or a zeroed buffer.  groups: 8-item groups a block (1, 2
 // or 4); chunk: digit indices staged at once (a multiple of 128, at most
 // n); split: blocks that share one output tile's 2n / chunk chunks (a
-// divisor of that count); overlap != 0: the overlapped launch (header).
-// Launches on `stream`; returns the cudaError_t of the launch.
+// divisor of that count).  Launches on `stream`; returns the cudaError_t of
+// the launch.
 extern "C" int fhe_ext_product(const void* dl, const void* key, void* out,
                                int batch, int n, int groups, int chunk,
-                               int split, int overlap, void* stream) {
-  if (!valid(batch, n, chunk, split))
+                               int split, void* stream) {
+  if (n < 128 || n > 2048 || (n & (n - 1)) || batch < 0 || chunk < 128 ||
+      chunk > n || chunk % 128 || split < 1 || (2 * n / chunk) % split)
     return static_cast<int>(cudaErrorInvalidValue);
   if (batch == 0) return 0;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (groups) {
-    case 1:
-      return launch<1>(dl, key, out, batch, n, chunk, split, overlap != 0, s);
-    case 2:
-      return launch<2>(dl, key, out, batch, n, chunk, split, overlap != 0, s);
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
-}
-
-// One whole step of the step-wise blind rotation: out[b][col][t] +=
-// acc[b][col][t] + ext[b][col][t] (mod 2^64) with ext the external product
-// of the digits of acc * X^amounts[b] - acc (rotate_decompose.cu's) against
-// key, and zero[...] = 0.  acc, out, zero: u64 [batch, 2, n], three buffers
-// that do not overlap; out holds zeros on entry when the launch is one of a
-// rotation's steps.  amounts: int32 [batch] in [0, 2n).  key, groups, chunk,
-// split: as fhe_ext_product.  cluster: the blocks that make a chunk's digits
-// together, 1, 2, 4 or 8 and at most n / 128.  Launches on `stream`; returns
-// the cudaError_t of the launch.
-extern "C" int fhe_ext_product_step(const void* acc, const void* amounts,
-                                    const void* key, void* out, void* zero,
-                                    int batch, int n, int groups, int chunk,
-                                    int split, int cluster, void* stream) {
-  if (!valid(batch, n, chunk, split) || cluster < 1 ||
-      cluster > kMaxCluster || (cluster & (cluster - 1)) ||
-      cluster > n / kMt)
-    return static_cast<int>(cudaErrorInvalidValue);
-  if (batch == 0) return 0;
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (groups) {
-    case 1:
-      return launch_step<1>(acc, amounts, key, out, zero, batch, n, chunk,
-                            split, cluster, s);
-    case 2:
-      return launch_step<2>(acc, amounts, key, out, zero, batch, n, chunk,
-                            split, cluster, s);
+    case 1: return launch<1>(dl, key, out, batch, n, chunk, split, s);
+    case 2: return launch<2>(dl, key, out, batch, n, chunk, split, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

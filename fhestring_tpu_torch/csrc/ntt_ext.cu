@@ -124,7 +124,7 @@ template <int kC>
 int launch_cluster(const void* dl, const void* khat, const void* tw,
                    void* out, int batch, int n, int log_n, bool accumulate,
                    cudaStream_t stream) {
-  return rotate_cluster::launch<Spec, kC, false>(
+  return rotate_cluster::launch<Spec, kC>(
       accumulate ? out : nullptr, out,
       Spec::Source{static_cast<const int8_t*>(dl), batch}, khat, tw, batch, 1,
       n, log_n, stream);

@@ -301,6 +301,8 @@ kernel(const typename S::Acc* acc_in, typename S::Acc* acc_out,
 }
 
 // Lets the body use the shared memory of polynomial size n (and below).
+// Each kernel's init function calls it once per device with the largest n:
+// a launch that is captured into a CUDA graph cannot set an attribute.
 template <class S, int kC>
 cudaError_t allow_shared_memory(int n) {
   return cudaFuncSetAttribute(
@@ -308,13 +310,9 @@ cudaError_t allow_shared_memory(int n) {
       static_cast<int>(Body<S, kC>::smem_bytes(n)));
 }
 
-// kAllow: set the kernel's shared-memory limit for this n first.  A caller
-// whose launches may be captured into a CUDA graph sets it once before
-// (allow_shared_memory) and passes false: a capture cannot.
-template <class S, int kC, bool kAllow = true>
-cudaError_t configure(cudaLaunchConfig_t* config, cudaLaunchAttribute* attr,
-                      int batch, int n, cudaStream_t stream) {
-  const size_t smem = Body<S, kC>::smem_bytes(n);
+template <class S, int kC>
+void configure(cudaLaunchConfig_t* config, cudaLaunchAttribute* attr,
+               int batch, int n, cudaStream_t stream) {
   attr->id = cudaLaunchAttributeClusterDimension;
   attr->val.clusterDim.x = kC;
   attr->val.clusterDim.y = 1;
@@ -322,26 +320,23 @@ cudaError_t configure(cudaLaunchConfig_t* config, cudaLaunchAttribute* attr,
   *config = cudaLaunchConfig_t{};
   config->gridDim = dim3(static_cast<unsigned>(batch) * kC);
   config->blockDim = dim3(kThreads);
-  config->dynamicSmemBytes = smem;
+  config->dynamicSmemBytes = Body<S, kC>::smem_bytes(n);
   config->stream = stream;
   config->attrs = attr;
   config->numAttrs = 1;
-  return kAllow ? allow_shared_memory<S, kC>(n) : cudaSuccess;
 }
 
 // Launches the cluster body of kC blocks an item; the launch's cudaError_t.
-template <class S, int kC, bool kAllow = true>
+template <class S, int kC>
 int launch(const void* acc_in, void* acc_out, typename S::Source source,
            const void* khat, const void* tw, int batch, int n_steps, int n,
            int log_n, cudaStream_t stream) {
   using Acc = typename S::Acc;
+  if (batch == 0) return 0;
   cudaLaunchConfig_t config;
   cudaLaunchAttribute attr;
-  cudaError_t err =
-      configure<S, kC, kAllow>(&config, &attr, batch, n, stream);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  if (batch == 0) return 0;
-  err = cudaLaunchKernelEx(
+  configure<S, kC>(&config, &attr, batch, n, stream);
+  const cudaError_t err = cudaLaunchKernelEx(
       &config, kernel<S, kC>, static_cast<const Acc*>(acc_in),
       static_cast<Acc*>(acc_out), source,
       static_cast<const uint16_t*>(khat), static_cast<const uint2*>(tw),
@@ -355,10 +350,10 @@ template <class S, int kC>
 int max_active_clusters(int n) {
   cudaLaunchConfig_t config;
   cudaLaunchAttribute attr;
-  cudaError_t err = configure<S, kC>(&config, &attr, 1, n, nullptr);
+  configure<S, kC>(&config, &attr, 1, n, nullptr);
   int clusters = 0;
-  if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveClusters(&clusters, kernel<S, kC>, &config);
+  const cudaError_t err =
+      cudaOccupancyMaxActiveClusters(&clusters, kernel<S, kC>, &config);
   return err == cudaSuccess ? clusters : -static_cast<int>(err);
 }
 

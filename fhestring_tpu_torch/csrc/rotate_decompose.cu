@@ -49,10 +49,6 @@ rotate_decompose_kernel(const uint64_t* __restrict__ acc,
                         const int32_t* __restrict__ amounts,
                         int8_t* __restrict__ dl, size_t total, int n,
                         int log_n) {
-  // A kernel launched behind this one with programmatic stream serialization
-  // (ext_product.cu's overlapped launch) may start now; it waits for this
-  // grid to end before it reads dl.  Without such a dependent, nothing.
-  asm volatile("griddepcontrol.launch_dependents;" ::: "memory");
   const size_t idx =
       (static_cast<size_t>(blockIdx.x) * kThreads + threadIdx.x) * kPer;
   if (idx >= total) return;

@@ -6,9 +6,7 @@ For each (batch, body): when the blocks start and end (ns from the first
 block's start) and, per block, the cycles of staging, of the product loop
 and of the recombination with its atomics; from the loop's cycles, the
 cycles a warp takes per ``mma.sync``.  The copy is made by inserting lines
-at marked places of the source and fails if a mark is gone.  The readings
-are of the kernel's product form (every form of the kernel is instrumented,
-only that one is launched).  Usage:
+at marked places of the source and fails if a mark is gone.  Usage:
 
     python3 -m fhestring_tpu_torch.tools.k3_phases
 """
@@ -43,14 +41,14 @@ EDITS = (
      "  const unsigned long long g0 = gtime();\n"
      "  long long t1 = 0, t2 = clock64(), ts = 0, tk = 0;\n"
      "  for (int ch = blockIdx.z * per_block;"),
-    ("      cp_async_wait_all();\n      __syncthreads();\n    }\n",
-     "      cp_async_wait_all();\n      __syncthreads();\n    }\n"
+    ("    cp_async_wait_all();\n    __syncthreads();\n",
+     "    cp_async_wait_all();\n    __syncthreads();\n"
      "    t1 = clock64();\n    ts += t1 - t2;\n"),
-    ("    __syncthreads();\n    if (kStep && ch + 1 < last)",
-     "    __syncthreads();\n    t2 = clock64();\n    tk += t2 - t1;\n"
-     "    if (kStep && ch + 1 < last)"),
-    ("static_cast<unsigned long long>(sum));\n      }\n}\n",
-     "static_cast<unsigned long long>(sum));\n      }\n"
+    ("    __syncthreads();\n  }\n\n  // ext = sum_s",
+     "    __syncthreads();\n    t2 = clock64();\n    tk += t2 - t1;\n  }\n\n"
+     "  // ext = sum_s"),
+    ("                  static_cast<unsigned long long>(sum));\n      }\n}\n",
+     "                  static_cast<unsigned long long>(sum));\n      }\n"
      "  const size_t bl = (static_cast<size_t>(blockIdx.z) * gridDim.y +\n"
      "                     blockIdx.y) * gridDim.x + blockIdx.x;\n"
      "  if (threadIdx.x == 0 && bl < %d) {\n"
@@ -75,11 +73,11 @@ def build() -> ctypes.CDLL:
     with open(path + ".cu", "w") as f:
         f.write(src + READER)
     flags = [f for f in cuda_build.NVCC_FLAGS if f not in ("-Xptxas", "-v")]
-    subprocess.run(["/usr/local/cuda/bin/nvcc", *flags, "-I", cuda_build.CSRC,
-                    "-o", path + ".so", path + ".cu"], check=True)
+    subprocess.run(["/usr/local/cuda/bin/nvcc", *flags, "-o", path + ".so",
+                    path + ".cu"], check=True)
     lib = ctypes.CDLL(path + ".so")
     vp, i = ctypes.c_void_p, ctypes.c_int
-    lib.fhe_ext_product.argtypes = [vp, vp, vp, i, i, i, i, i, i, vp]
+    lib.fhe_ext_product.argtypes = [vp, vp, vp, i, i, i, i, i, vp]
     lib.fhe_prof.argtypes = [vp, i]
     if lib.fhe_ext_product_init():
         raise SystemExit("init failed")
@@ -102,8 +100,7 @@ def main() -> None:
         stream = torch.cuda.current_stream().cuda_stream
         for step in range(3):  # the last launch, on a cold key, is read
             err = lib.fhe_ext_product(dl.data_ptr(), limbs[step].data_ptr(),
-                                      out.data_ptr(), batch, N, *body, 0,
-                                      stream)
+                                      out.data_ptr(), batch, N, *body, stream)
             torch.cuda.synchronize()
         if err or not torch.equal(out, 0 + sum(
                 ep.ext_product(dl, limbs[s], body=body) for s in range(3))):

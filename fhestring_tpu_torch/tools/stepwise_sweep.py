@@ -5,10 +5,9 @@ in every body, K4 (``ntt_ext``) in its three bodies and K5
 For each batch B: K3's device time in each body (groups, chunk, split) that
 fits, fastest first, beside the body ``pick_body`` takes; K4's device time
 in each body (1 block an item, clusters of 2 and 4) beside the body
-``pick_cluster`` takes; K5's device time; a step of the K3 route in its
-three forms (K5 then K3, K3 overlapped behind K5, K3's step body, that one
-also by the size of its cluster); and K3's
-and K5's eager wall time a launch (what the host needs to start one).
+``pick_cluster`` takes; K5's device time; a step of the K3 route (K5 then
+K3); and K3's and K5's eager wall time a launch (what the host needs to
+start one).
 Device times are of 20 launches captured into a CUDA graph.  Every K3 body
 is held bit-identical to the picked one, every K4 body to K3.  The last
 line gives the B at which K3 and K4 cross.  Usage:
@@ -94,40 +93,19 @@ def main() -> None:
         k4_ms = k4_body[k4_pick]
         k5_ms = graph_ms(lambda: rd.rotate_diff_decompose(acc, amt, out=dl),
                          launches, repeat)
-        bufs = [acc.clone(), torch.zeros_like(acc), torch.zeros_like(acc)]
-        turn = [0]
 
-        def step_form():
-            j = turn[0]
-            turn[0] += 1
-            ep.ext_product_step(bufs[j % 3], amt, limbs, out=bufs[(j + 1) % 3],
-                                zero=bufs[(j + 2) % 3])
-
-        def two_kernels(overlap):
+        def two_kernels():
             rd.rotate_diff_decompose(acc, amt, out=dl)
-            ep.ext_product(dl, limbs, out=out, accumulate=True,
-                           overlap=overlap)
+            ep.ext_product(dl, limbs, out=out, accumulate=True)
 
-        forms = {"K5 then K3": graph_ms(lambda: two_kernels(False), launches,
-                                        repeat),
-                 "overlapped": graph_ms(lambda: two_kernels(True), launches,
-                                        repeat),
-                 "step body": graph_ms(step_form, 3 * (launches // 3 + 1),
-                                       repeat)}
-        spare = torch.zeros_like(acc)
-        for c in ep.STEP_CLUSTERS:  # the body's digits once per c blocks
-            forms[f"step body<{c}>"] = graph_ms(
-                lambda: ep.ext_product_step(acc, amt, limbs, out=out,
-                                            zero=spare, cluster=c),
-                launches, repeat)
+        step_ms = graph_ms(two_kernels, launches, repeat)
         if crossing is None and k4_ms < pick_ms:
             crossing = b
         print(f"B={b}: K3 picked {pick} {pick_ms * 1e3:.2f} us "
               f"(eager wall {wall_ms(k3) * 1e3:.1f} us a launch); K4 picked "
               f"<{k4_pick}> {k4_ms * 1e3:.2f} us, by body "
               + " ".join(f"<{c}>:{ms * 1e3:.1f}" for c, ms in k4_body.items())
-              + "; a step of the K3 route, us: "
-              + ", ".join(f"{k} {ms * 1e3:.2f}" for k, ms in forms.items())
+              + f"; a step of the K3 route (K5 then K3) {step_ms * 1e3:.2f} us"
               + f"; K5 {k5_ms * 1e3:.2f} us (eager wall "
               f"{wall_ms(lambda: rd.rotate_diff_decompose(acc, amt, out=dl)) * 1e3:.1f}"
               f" us); K3 bodies, us: "

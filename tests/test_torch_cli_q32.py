@@ -26,7 +26,10 @@ JAX package and 27 ms in the port's plain PyTorch path on one CPU core:
   what Python's ``str`` gives (the CLI's own oracles), and the counts agree.
 - the same for the other variants (the splits, Repeat, Concatenate, Trim,
   the other replaces), marked ``slow``: 7 to 30 minutes each on a CPU
-  core.  The card runs all 52 for real (``chip_smoke.py``).
+  core.  tests/test_torch_cli_short_q32.py and _q64.py run them with real
+  bootstraps in the default tier on a one-character string, where they
+  cost hundreds of bootstraps and not thousands.  The card runs all 52 for
+  real (``chip_smoke.py``).
 
 Tolerance: zero.  On the CPU every layer of both packages is exact integer
 arithmetic.  tests/test_torch_cli_q64.py runs the same checks at the 64-bit
@@ -134,8 +137,7 @@ class _FixedInputs:
         return getattr(self._client, name)
 
 
-def _jax_inputs(jck):
-    a = ARGS
+def _jax_inputs(jck, a):
     made = {("padded", s): jck.encrypt(s, jcli.STRING_PADDING)
             for s in (a.string, a.pattern)}
     made.update({("bare", s): jck.encrypt_no_padding(s)
@@ -165,10 +167,12 @@ def _words(value, to_numpy):
 
 
 class Pair:
-    """Both packages' servers on one set of keys, and one set of inputs."""
+    """Both packages' servers on one set of keys, and one set of inputs
+    (those of ``args``, the CLI's arguments)."""
 
-    def __init__(self, family):
+    def __init__(self, family, args=ARGS):
         port_p, jax_p, self.params_name = FAMILIES[family]
+        self.args = args
         self.jck = JaxClientKey(jax_p, seed=SEED)
         self.jsrv = self.jck.get_server_key()
         self.ck = ClientKey(port_p, seed=SEED)   # same seed, same secret key
@@ -176,7 +180,7 @@ class Pair:
                                       self.jck.secret.big_lwe_sk)
         self.srv = ServerKey(pack_server_keys(self.jck._server_raw, "cpu",
                                               params=port_p), port_p)
-        self.jin = _jax_inputs(self.jck)
+        self.jin = _jax_inputs(self.jck, args)
         self.pin = {k: _to_port(v) for k, v in self.jin.items()}
         self.counts = {}  # method -> (pbs_calls, pbs_items, pbs_items_padded)
 
@@ -187,14 +191,14 @@ class Pair:
         jmetrics.reset()
         with contextlib.redirect_stdout(io.StringIO()):
             jok = jcli.run_fhe_str_method(
-                jrec, _FixedInputs(self.jck, self.jin), ARGS, method)
+                jrec, _FixedInputs(self.jck, self.jin), self.args, method)
         jcounts = (jmetrics.GLOBAL.pbs_calls, jmetrics.GLOBAL.pbs_items,
                    jmetrics.GLOBAL.pbs_items_padded)
         rec = _Recorder(self.srv)
         metrics.reset()
         with contextlib.redirect_stdout(io.StringIO()):
             ok = cli.run_fhe_str_method(
-                rec, _FixedInputs(self.ck, self.pin), ARGS, method)
+                rec, _FixedInputs(self.ck, self.pin), self.args, method)
         counts = (metrics.GLOBAL.pbs_calls, metrics.GLOBAL.pbs_items,
                   metrics.GLOBAL.pbs_items_padded)
         jout = [w for v in jrec.returned for w in _words(v, jtorus.to_numpy)]

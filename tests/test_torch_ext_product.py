@@ -312,128 +312,3 @@ def test_wrapper_rejects_bad_inputs(inputs, monkeypatch, bad):
         kwargs["accumulate"] = True
     with pytest.raises((TypeError, ValueError)):
         ep.ext_product(dl, key, **kwargs)
-
-
-# ---- the step form: digits, product and accumulator update in one call ----
-
-def _step_inputs(N, steps=4, batch=3):
-    rng = np.random.default_rng(100 + N)
-    acc = rng.integers(0, 1 << 64, size=(batch, KP1, N), dtype=np.uint64)
-    amounts = rng.integers(0, 2 * N, size=(steps, batch)).astype(np.int32)
-    for j, edge in enumerate((0, N, 2 * N - 1)[:steps]):
-        amounts[j, 0] = edge
-    key = rng.integers(0, 1 << 64, size=(steps, R, KP1, N), dtype=np.uint64)
-    return acc, amounts, key
-
-
-def test_step_plain_over_four_steps_matches_the_jax_kernels():
-    """Four consecutive steps of ``ext_product_step`` over three rotating
-    buffers on the CPU, against the JAX package's step: its Pallas kernels
-    ``rotate_diff_decompose`` and ``ext_product_u64`` run in interpret mode,
-    and the add mod 2^64.  Tolerance 0."""
-    import jax.numpy as jnp
-
-    from fhestring_tpu import torus as jtorus
-    from fhestring_tpu.crypto.kernels.rotate_decompose import (
-        rotate_diff_decompose as jax_rotate_diff_decompose)
-
-    N = 256                          # the JAX kernel's smallest
-    acc, amounts, key = _step_inputs(N, batch=B)
-    want = acc.copy()
-    for j in range(amounts.shape[0]):
-        a = jtorus.from_numpy(want)
-        dl = np.asarray(jax_rotate_diff_decompose(
-            a.lo, a.hi, jnp.asarray(amounts[j]), n_poly=N, base_log=23,
-            num_la=LIMBS, interpret=True))
-        want = want + _jax(dl, key[j])   # reverses the digits itself
-    planes = keys.pack_bsk_limbs(key, "cpu")
-    bufs = [torus.from_numpy(acc), torch.zeros((B, KP1, N), dtype=torch.int64),
-            torch.full((B, KP1, N), 11, dtype=torch.int64)]
-    steps = torch.from_numpy(amounts)
-    for j in range(steps.shape[0]):
-        out = ep.ext_product_step(bufs[j % 3], steps[j], planes[j],
-                                  out=bufs[(j + 1) % 3],
-                                  zero=bufs[(j + 2) % 3])
-        assert out is bufs[(j + 1) % 3]
-        assert not bufs[(j + 2) % 3].any()
-    np.testing.assert_array_equal(torus.to_numpy(bufs[steps.shape[0] % 3]),
-                                  want)
-
-
-def test_step_form_is_k5_then_k3_then_add(inputs):
-    """One step: out += acc + ext_product(rotate_diff_decompose(acc, a),
-    key), zero = 0, and no launch is counted on the CPU."""
-    from fhestring_tpu_torch.crypto.kernels import rotate_decompose as rd
-
-    N = inputs[1].shape[-1]
-    acc, amounts, key = _step_inputs(N, steps=1, batch=B)
-    acc_t, a_t = torus.from_numpy(acc), torch.from_numpy(amounts[0])
-    planes = keys.pack_bsk_limbs(key, "cpu")[0]
-    want = acc_t + ep.ext_product(rd.rotate_diff_decompose(acc_t, a_t), planes)
-    assert torch.equal(ep.ext_product_step_plain(acc_t, a_t, planes), want)
-    before = ep.ext_product.launches, dict(ep.ext_product.bodies)
-    start = torch.full_like(acc_t, 3)
-    out, zero = start.clone(), torch.full_like(acc_t, 5)
-    ep.ext_product_step(acc_t, a_t, planes, out=out, zero=zero)
-    assert torch.equal(out, start + want) and not zero.any()
-    assert torch.equal(acc_t, torus.from_numpy(acc))
-    assert (ep.ext_product.launches, ep.ext_product.bodies) == before
-    assert set(ep.ext_product.bodies) == {"product", "step"}
-    for cluster in ep.STEP_CLUSTERS:          # the card's choice; same bits
-        if cluster <= N // ep.M_TILE:
-            again = start.clone()
-            ep.ext_product_step(acc_t, a_t, planes, out=again,
-                                zero=torch.empty_like(acc_t), cluster=cluster)
-            assert torch.equal(again, out)
-    assert ep.STEP_CLUSTER in ep.STEP_CLUSTERS
-
-
-@pytest.mark.parametrize("bad", ["no out", "no zero", "out is acc",
-                                 "zero is acc", "zero is out",
-                                 "zero overlaps out", "out shape",
-                                 "zero dtype", "acc shape", "amounts dtype",
-                                 "amounts shape", "key shape", "body",
-                                 "cluster 3", "cluster 16", "cluster True",
-                                 "cluster beyond N / 128"])
-def test_step_form_rejects_bad_inputs(inputs, bad):
-    N = inputs[1].shape[-1]
-    acc, amounts, key = _step_inputs(N, steps=1, batch=B)
-    acc, amounts = torus.from_numpy(acc), torch.from_numpy(amounts[0])
-    planes = keys.pack_bsk_limbs(key, "cpu")[0]
-    both = torch.zeros((2,) + tuple(acc.shape), dtype=torch.int64)
-    kwargs = {"out": both[0], "zero": both[1]}
-    if bad == "no out":
-        kwargs["out"] = None
-    elif bad == "no zero":
-        kwargs["zero"] = None
-    elif bad == "out is acc":
-        kwargs["out"] = acc
-    elif bad == "zero is acc":
-        kwargs["zero"] = acc
-    elif bad == "zero is out":
-        kwargs["zero"] = kwargs["out"]
-    elif bad == "zero overlaps out":
-        flat = torch.zeros(2 * acc.numel(), dtype=torch.int64)
-        kwargs["out"] = flat[:acc.numel()].view(acc.shape)
-        kwargs["zero"] = flat[8:8 + acc.numel()].view(acc.shape)
-    elif bad == "out shape":
-        kwargs["out"] = torch.zeros((B, KP1, 2 * N), dtype=torch.int64)
-    elif bad == "zero dtype":
-        kwargs["zero"] = torch.zeros(acc.shape, dtype=torch.int32)
-    elif bad == "acc shape":
-        acc = acc[:, :, :N // 2].contiguous()
-    elif bad == "amounts dtype":
-        amounts = amounts.to(torch.int64)
-    elif bad == "amounts shape":
-        amounts = amounts[:-1].contiguous()
-    elif bad == "key shape":
-        planes = planes[:, :, :4].contiguous()
-    elif bad == "body":
-        kwargs["body"] = (1, 128, 3)
-    elif bad == "cluster beyond N / 128":
-        kwargs["cluster"] = 2 * (N // ep.M_TILE)
-        assert kwargs["cluster"] in ep.STEP_CLUSTERS
-    elif bad.startswith("cluster"):
-        kwargs["cluster"] = {"3": 3, "16": 16, "True": True}[bad.split()[1]]
-    with pytest.raises((TypeError, ValueError)):
-        ep.ext_product_step(acc, amounts, planes, **kwargs)

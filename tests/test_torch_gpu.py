@@ -619,7 +619,7 @@ def test_contains_without_ntt_key_on_cuda_equals_cpu(stepwise):
 
 
 # ---------------------------------------------------------------------------
-# K3's step body and overlapped launch, K4's cluster bodies, the CLI
+# K4's cluster bodies, the step loop's graph, use_fused, the CLI
 # ---------------------------------------------------------------------------
 
 STEP_SIZES = [128, 256, 512, 1024, 2048]
@@ -636,58 +636,6 @@ def _step_case(n, B, steps, dev):
     bsk = torch.randint(-2**63, 2**63 - 1, (steps, 2, 2, n),
                         dtype=torch.int64, generator=gen)
     return acc, amt.to(dev), bsk
-
-
-@pytest.mark.parametrize("B", STEP_BATCHES)
-@pytest.mark.parametrize("n", STEP_SIZES)
-def test_ext_product_step_body_matches_k5_then_k3(stepwise, n, B):
-    """Four consecutive steps of K3's step body over three rotating
-    buffers (the third dirty at the start), each step bit-identical to K5
-    followed by K3 adding into the accumulator, and to K3 launched
-    overlapped behind K5; the buffer a step zeroes is zero after it.  At
-    N <= 256 also against the plain version on the CPU."""
-    acc, amt, bsk = _step_case(n, B, 4, stepwise)
-    limbs = keys.pack_bsk_limbs(bsk, stepwise)
-    bufs = [acc.clone(), torch.zeros_like(acc), torch.full_like(acc, 7)]
-    ref, over = acc.clone(), acc.clone()
-    dl = torch.empty((3, B, 2 * n), dtype=torch.int8, device=stepwise)
-    before = ep.ext_product.bodies["step"]
-    for j in range(4):
-        ep.ext_product(rd.rotate_diff_decompose(ref, amt[j]), limbs[j],
-                       out=ref, accumulate=True)
-        rd.rotate_diff_decompose(over, amt[j], out=dl)
-        ep.ext_product(dl, limbs[j], out=over, accumulate=True, overlap=True)
-        out = ep.ext_product_step(bufs[j % 3], amt[j], limbs[j],
-                                  out=bufs[(j + 1) % 3],
-                                  zero=bufs[(j + 2) % 3])
-        assert out is bufs[(j + 1) % 3]
-        assert torch.equal(out, ref), j
-        assert torch.equal(over, ref), j
-        assert not bufs[(j + 2) % 3].any()
-    assert ep.ext_product.bodies["step"] == before + 4
-    if n <= 256:
-        cpu, cpu_limbs = acc.cpu(), limbs.cpu()
-        for j in range(4):
-            cpu = ep.ext_product_step_plain(cpu, amt[j].cpu(), cpu_limbs[j])
-        assert torch.equal(ref.cpu(), cpu)
-
-
-@pytest.mark.parametrize("cluster", ep.STEP_CLUSTERS)
-@pytest.mark.parametrize("n", [128, 512, 2048])
-def test_ext_product_step_body_in_every_kernel_body(stepwise, n, cluster):
-    """Every (groups, chunk, split) of the kernel with every cluster size
-    the polynomial size takes: the same bits."""
-    if cluster > n // ep.M_TILE:
-        pytest.skip("the cluster is at most N / 128 blocks")
-    acc, amt, bsk = _step_case(n, 33, 1, stepwise)
-    limbs = keys.pack_bsk_limbs(bsk, stepwise)[0]
-    want = acc + ep.ext_product(rd.rotate_diff_decompose(acc, amt[0]), limbs)
-    for body in _k3_bodies(n):
-        out, zero = torch.zeros_like(acc), torch.ones_like(acc)
-        ep.ext_product_step(acc, amt[0], limbs, out=out, zero=zero, body=body,
-                            cluster=cluster)
-        assert torch.equal(out, want), body
-        assert not zero.any(), body
 
 
 @pytest.mark.parametrize("cluster", ne.CLUSTERS)
@@ -715,31 +663,34 @@ def test_ntt_ext_every_body_matches_plain_and_k3(stepwise, n, B, cluster):
             ep.ext_product(dl, keys.pack_bsk_limbs(bsk, stepwise)[0]), want)
 
 
-@pytest.mark.parametrize("form", pbs.K3_GRAPH_ROUTES)
-def test_every_form_of_the_k3_graph_equals_the_eager_loop(
-        stepwise, key_material64, monkeypatch, form):
-    """Each form of the K3 route's graph (K5 then K3, K3 overlapped, K3's
-    step body), two inputs through one cached graph, against the eager loop
-    and K2's exact mode; the step form counts n launches of K3's step body
-    and none of K5."""
+@pytest.mark.parametrize("route", ["k3", "k4"])
+def test_step_graph_equals_the_eager_loop_on_both_routes(
+        stepwise, key_material64, route):
+    """The step loop's graph on each route, two inputs through one cached
+    graph, against the eager loop and K2's exact mode; a replay counts n
+    launches of K5 and n of the route's product kernel (K4: under the body
+    the wrapper picks)."""
     _, dev = key_material64
     n, N = P64.lwe_dimension, P64.polynomial_size
-    monkeypatch.setattr(pbs, "K3_GRAPH_ROUTE", form)
+    use_ntt2 = route == "k4"
+    product = ne.ntt_ext if use_ntt2 else ep.ext_product
     gen = torch.Generator().manual_seed(3)
     for turn in range(2):
         acc = torch.randint(-2**63, 2**63 - 1, (5, 2, N), dtype=torch.int64,
                             generator=gen).to(stepwise)
         amt = torch.randint(0, 2 * N, (5, n), dtype=torch.int32,
                             generator=gen).to(stepwise)
-        before = (rd.rotate_diff_decompose.launches, ep.ext_product.launches,
-                  ep.ext_product.bodies["step"])
-        got = pbs._blind_rotate_stepwise(acc, amt, dev, False)
-        counted = (rd.rotate_diff_decompose.launches - before[0],
-                   ep.ext_product.launches - before[1],
-                   ep.ext_product.bodies["step"] - before[2])
-        assert counted == ((0, n, n) if form == "step" else (n, n, 0))
+        before = (rd.rotate_diff_decompose.launches, product.launches,
+                  dict(ne.ntt_ext.bodies))
+        got = pbs._blind_rotate_stepwise(acc, amt, dev, use_ntt2)
+        assert (rd.rotate_diff_decompose.launches - before[0],
+                product.launches - before[1]) == (n, n)
+        picked = ne.pick_cluster(5, N, stepwise.index or 0)
+        assert ne.ntt_ext.bodies == {
+            c: before[2][c] + (n if use_ntt2 and c == picked else 0)
+            for c in ne.CLUSTERS}
         assert torch.equal(got, pbs._blind_rotate_stepwise(
-            acc, amt, dev, False, graph=False))
+            acc, amt, dev, use_ntt2, graph=False))
         assert torch.equal(got, br64.blind_rotate64(acc, amt, dev.bsk_ntt64))
 
 

@@ -277,19 +277,12 @@ def _spy_on_the_wrappers(monkeypatch):
     spies = {
         "k5": counting(rd.rotate_diff_decompose, None),
         "k4": counting(ne.ntt_ext, 1),
-        "k3": counting(ep.ext_product, "product"),
+        "k3": counting(ep.ext_product, None),
     }
-    ep_step = ep.ext_product_step
-
-    def k3_step(*args, **kwargs):           # counts into ext_product, as on
-        out = ep_step(*args, **kwargs)      # the card
-        spies["k3"].launches += 1
-        spies["k3"].bodies["step"] += 1
-        return out
+    monkeypatch.setattr(ne, "pick_cluster", lambda batch, n, index: 1)
     monkeypatch.setattr(rd, "rotate_diff_decompose", spies["k5"])
     monkeypatch.setattr(ne, "ntt_ext", spies["k4"])
     monkeypatch.setattr(ep, "ext_product", spies["k3"])
-    monkeypatch.setattr(ep, "ext_product_step", k3_step)
     for module in (rd, ep):
         monkeypatch.setattr(module, "prepare", lambda device: None)
     monkeypatch.setattr(ne, "prepare", lambda device, n: None)
@@ -299,91 +292,32 @@ def _spy_on_the_wrappers(monkeypatch):
     return spies
 
 
-@pytest.mark.parametrize("route", list(ROUTES) + ["k3-overlap", "k3-step"])
+@pytest.mark.parametrize("route", list(ROUTES))
 def test_replay_counts_n_launches_per_kernel(monkeypatch, route):
-    """A replay runs no wrapper, so ``_replay_steps`` adds what the capture
-    counted: n launches of K5 and n of the route's product kernel (the K3
-    route in the form the port takes, and in its overlapped form); in the
-    K3 route's step form n launches of K3, all of its step body, and none
-    of K5.  The capture itself counts nothing."""
+    """A replay runs no wrapper, so ``_replay_steps`` adds the graph's n
+    kernel nodes of K5 and of the route's product kernel (K4's also under
+    the body the capture picked) to their counts, and nothing to the other
+    product kernel's.  The capture itself counts nothing."""
     n, batch, size = 7, 3, 128
     spies = _spy_on_the_wrappers(monkeypatch)
-    route, _, form = route.partition("-")
-    if form:
-        monkeypatch.setattr(pbs, "K3_GRAPH_ROUTE", form)
-    elif route == "k3":
-        assert pbs.K3_GRAPH_ROUTE == "plain"
+    use_ntt2 = route == "k4"
     rng = np.random.default_rng(9)
     bsk = rng.integers(0, 1 << 64, size=(n, 2, 2, size), dtype=np.uint64)
-    key = (keys.pack_bsk_ntt(bsk, "cpu", keys.KEY_PLANES64) if route == "k4"
+    key = (keys.pack_bsk_ntt(bsk, "cpu", keys.KEY_PLANES64) if use_ntt2
            else keys.pack_bsk_limbs(bsk, "cpu"))
-    entry = pbs._capture_steps((batch, 2, size), n, key, route == "k4")
+    entry = pbs._capture_steps((batch, 2, size), n, key, use_ntt2)
     assert [spy.launches for spy in spies.values()] == [0, 0, 0]
+    assert spies["k4"].bodies == {1: 0, 2: 0, 4: 0}
     assert entry.graph.replays == 0
+    assert entry.k4_body == (1 if use_ntt2 else None)
     for replays in (1, 2):
-        pbs._replay_steps(entry)
+        pbs._replay_steps(entry, use_ntt2)
         assert entry.graph.replays == replays
         got = {name: spy.launches for name, spy in spies.items()}
-        assert got == {"k5": 0 if form == "step" else replays * n,
-                       "k4": replays * n if route == "k4" else 0,
-                       "k3": replays * n if route == "k3" else 0}
-    if form == "step":
-        assert spies["k3"].bodies == {"product": 0, "step": 2 * n}
-        assert len(entry.scratch) == 2       # the two other accumulators
-        assert entry.result is ((entry.acc,) + entry.scratch)[n % 3]
-    else:
-        assert entry.result is entry.acc
-        if route == "k4":
-            assert spies["k4"].bodies[1] == 2 * n
-        else:
-            assert spies["k3"].bodies == {"product": 2 * n, "step": 0}
-
-
-
-@pytest.mark.parametrize("n", [1, 2, 3, 7])
-def test_three_buffer_rotation_in_numpy(n):
-    """The K3 route's schedule, modelled in numpy with a stand-in for the
-    step: step j reads buffer j mod 3, adds into buffer (j + 1) mod 3 and
-    zeroes buffer (j + 2) mod 3; after n steps buffer n mod 3 holds what
-    the in-place loop gives, whatever the third buffer held at the start."""
-    rng = np.random.default_rng(n)
-    acc = rng.integers(0, 1 << 64, size=(3, 2, 16), dtype=np.uint64)
-    mult = rng.integers(0, 1 << 64, size=(n,), dtype=np.uint64) | np.uint64(1)
-
-    def ext(a, j):                     # any function of the old accumulator
-        return np.roll(a, j + 1, axis=-1) * mult[j]
-
-    want = acc.copy()
-    for j in range(n):
-        want = want + ext(want, j)
-    bufs = [acc.copy(), np.zeros_like(acc),
-            rng.integers(0, 1 << 64, size=acc.shape, dtype=np.uint64)]
-    for j in range(n):
-        src, dst, nxt = bufs[j % 3], bufs[(j + 1) % 3], bufs[(j + 2) % 3]
-        assert not dst.any()
-        dst += src + ext(src, j)
-        nxt[...] = 0
-    np.testing.assert_array_equal(bufs[n % 3], want)
-
-
-@pytest.mark.parametrize("n", [1, 2, 3, 7])
-def test_rotating_step_loop_equals_the_in_place_loop(n):
-    """``_run_steps_rotating`` (K3's step form over three buffers) against
-    ``_run_steps`` (K5, then K3 adding in place) on the CPU's plain
-    versions: the result lies in buffer n mod 3 with the same bits."""
-    size, batch = 128, 3
-    rng = np.random.default_rng(40 + n)
-    bsk = rng.integers(0, 1 << 64, size=(n, 2, 2, size), dtype=np.uint64)
-    key = keys.pack_bsk_limbs(bsk, "cpu")
-    acc = torus.from_numpy(rng.integers(0, 1 << 64, size=(batch, 2, size),
-                                        dtype=np.uint64))
-    steps = torch.from_numpy(rng.integers(0, 2 * size, size=(n, batch))
-                             .astype(np.int32))
-    want = pbs._run_steps(acc.clone(), steps, key, False)
-    bufs = (acc.clone(), torch.full_like(acc, 5), torch.full_like(acc, 9))
-    out = pbs._run_steps_rotating(bufs, steps, key)
-    assert out is bufs[n % 3]
-    assert torch.equal(out, want)
+        assert got == {"k5": replays * n,
+                       "k4": replays * n if use_ntt2 else 0,
+                       "k3": 0 if use_ntt2 else replays * n}
+    assert spies["k4"].bodies == {1: 2 * n if use_ntt2 else 0, 2: 0, 4: 0}
 
 
 def test_step_graphs_are_cached_by_shape_route_and_key(monkeypatch):
@@ -395,7 +329,7 @@ def test_step_graphs_are_cached_by_shape_route_and_key(monkeypatch):
     def fake_capture(shape, n, key, use_ntt2):
         captured.append((tuple(shape), n, use_ntt2))
         return pbs._StepGraph(_FakeGraph(), key, torch.zeros(1),
-                              torch.zeros(1), torch.zeros(1), (), [])
+                              torch.zeros(1), torch.zeros(1), None)
 
     monkeypatch.setattr(pbs, "_capture_steps", fake_capture)
     monkeypatch.setattr(pbs, "_STEP_GRAPHS", type(pbs._STEP_GRAPHS)())
@@ -412,23 +346,6 @@ def test_step_graphs_are_cached_by_shape_route_and_key(monkeypatch):
     assert pbs._step_graph((5, 2, 64), 7, key, False) is first   # was kept
     pbs._step_graph((5, 2, 64), 7, key, True)                    # was dropped
     assert len(captured) == 5
-
-
-def test_each_form_of_the_k3_graph_has_a_graph_of_its_own(monkeypatch):
-    monkeypatch.setattr(
-        pbs, "_capture_steps", lambda shape, n, key, use_ntt2: pbs._StepGraph(
-            _FakeGraph(), key, torch.zeros(1), torch.zeros(1), torch.zeros(1),
-            (), []))
-    monkeypatch.setattr(pbs, "_STEP_GRAPHS", type(pbs._STEP_GRAPHS)())
-    key = torch.zeros(4)
-    made = {}
-    for form in pbs.K3_GRAPH_ROUTES:
-        monkeypatch.setattr(pbs, "K3_GRAPH_ROUTE", form)
-        made[form] = pbs._step_graph((5, 2, 64), 7, key, False)
-        assert pbs._step_graph((5, 2, 64), 7, key, False) is made[form]
-    assert len({id(g) for g in made.values()}) == len(pbs.K3_GRAPH_ROUTES)
-    monkeypatch.undo()
-    assert pbs.K3_GRAPH_ROUTE == "plain"     # the fastest measured (PERF.md)
 
 
 @pytest.mark.parametrize("kernel", ["k5", "k4"])
