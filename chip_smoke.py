@@ -2,7 +2,8 @@
 """Smoke run of the PyTorch/CUDA port (fhestring_tpu_torch) on one GPU.
 
 Drives the port's served path on the card at two full-width parameter
-sets, then the ported CLI, each phase printing one line:
+sets, then the ported CLI, then keys saved and loaded and served over TCP,
+each phase printing one line:
 
 1. device: name, count, ``nvidia-smi`` name and power limit;
 2. build of all five kernels from csrc/ (one nvcc each, in parallel),
@@ -79,6 +80,29 @@ The ported CLI (``fhestring_tpu_torch.cli``), which makes its own keys:
     the row of benchmarks/methods_turbo_r5c.jsonl;
 18. the same at ``--params prod`` against the 52 rows of PROD_COUNTS.
 
+Keys saved and loaded, the TCP service, and the two newer routes of
+``pbs_batch`` (turbo and PARAM_PROD keys made again from seed 0):
+
+19. persistence at turbo, at PARAM_PROD and at PARAM_PROD packed
+    ``with_ntt2=False``: the packed server key saved
+    (``serialize.save_packed_server_key``), loaded onto the card into a
+    fresh ServerKey with bit-identical keys, Contains through it
+    bit-identical to the server it was saved from, and
+    ``get_server_key(cache_path=)`` twice, a miss that packs and saves and
+    a hit that must not pack; the file's MiB and the seconds of each step;
+20. the six requests through a ``FheStringServer`` over the PARAM_PROD
+    server loaded in phase 19, from a ``RemoteServerKey`` on 127.0.0.1:
+    outputs, PROD_COUNTS and K2's launches as in phase 11 (the server runs
+    in this process), each request's wall time beside phase 11's;
+21. a turbo server packed ``with_ntt2=False`` (digits in torch ops and one
+    K3 per gadget level): K3 at that route's shapes against its plain
+    version, then the six requests, TURBO_COUNTS, 3n launches of K3 per
+    PBS batch and none of K1 or K5, with their share of time in the step
+    graphs; and ``pbs_batch(use_ntt=True)`` at B=8 and 256 on the
+    PARAM_PROD key, bit-identical to K2's exact mode, with both times.
+
+Phases 19-21 print the card's name and power limit on their lines.
+
 Then one JSON line describing the five kernels, each with its time beside
 its bound: the least time the card could take, the larger of its bytes over
 the memory rate and its integer instructions over the int32 rate (no single
@@ -90,6 +114,7 @@ non-zero.  Usage (from the repository root):
     python3 chip_smoke.py
 """
 
+import contextlib
 import json
 import os
 import re
@@ -184,6 +209,9 @@ INT32_LANES, CLOCK_HZ, MEMORY_RATE = 64, 1.98e9, 3.35e12
 # three, and two lazy adds: what the SASS has), of a multiply-add of the
 # pointwise products, and of one coefficient's rotate, difference and digits
 BUTTERFLY_OPS, PRODUCT_OPS, DIGIT_OPS = 5, 1, 20
+
+
+CARD = ""  # nvidia-smi's name and power limit of the card, set by main()
 
 
 def fail(msg: str):
@@ -419,6 +447,7 @@ def requests(client, server, counters, table_counts, phase, spans=None):
             fail(f"{method}: PBS (items, batches) {counts}, table "
                  f"{table_counts[method]}")
         rows.append((method, got, counts, dt, inside))
+    requests.wall[phase] = {r[0]: r[3] for r in rows}
     launches = [kernel.launches for kernel, _ in counters]
     batches = sum(r[2][1] for r in rows)
     for (kernel, per_batch), count in zip(counters, launches):
@@ -437,7 +466,7 @@ def requests(client, server, counters, table_counts, phase, spans=None):
           + f"; the six together {sum(r[3] for r in rows) * 1e3:.0f} ms"
           + ("" if spans is None else
              f", {100 * sum(r[4] for r in rows) / sum(r[3] for r in rows):.1f}"
-             f"% of it in the step graphs"))
+             f"% of it in the step graphs") + f"; {CARD}")
     return launches
 
 
@@ -789,6 +818,9 @@ def stepwise_throughput(client, dkeys, bank, phase):
           + "; ".join(line))
 
 
+requests.wall = {}  # phase -> {method: seconds} of its last run
+
+
 CLI_ROW = re.compile(r"(\w+) (\d+\.\d+)s \[(\d+) PBS in (\d+) batches\]$")
 
 
@@ -800,7 +832,6 @@ def cli_on_the_card(params_name, table, phase):
     rows of benchmarks/methods_turbo_r5c.jsonl (the card has no JAX engine
     to ask; that table's batch counts are up to 2 above the engine's in 28
     rows, see TURBO_COUNTS)."""
-    import contextlib
     import io
 
     from fhestring_tpu_torch import cli
@@ -847,6 +878,192 @@ def cli_on_the_card(params_name, table, phase):
           f"slowest {slowest[0]} {slowest[1]:.1f} s")
 
 
+@contextlib.contextmanager
+def timed_replays(spans):
+    """The share of a request the card spends in the replayed step graphs:
+    CUDA events around every replay, appended to ``spans``."""
+    import torch
+
+    from fhestring_tpu_torch.crypto import pbs
+
+    replay = pbs._replay_steps
+
+    def timed_replay(entry, use_ntt2):
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        replay(entry, use_ntt2)
+        end.record()
+        spans.append((start, end))
+
+    pbs._replay_steps = timed_replay
+    try:
+        yield
+    finally:
+        pbs._replay_steps = replay
+
+
+def same_device_keys(got, want, what):
+    """Every key tensor of two DeviceServerKeys present in both or in
+    neither, on the card and bit-identical."""
+    import torch
+
+    for field in ("bsk_limbs", "ksk_limbs", "bsk_ntt32", "bsk_ntt64",
+                  "bsk_ntt"):
+        a, b = getattr(got, field), getattr(want, field)
+        if (a is None) != (b is None) or (a is not None and not (
+                a.is_cuda and torch.equal(a, b))):
+            fail(f"{what}: {field} differs from the saved server's")
+
+
+def persistence(client, label, with_ntt2, workdir, phase):
+    """Pack the client's server key on the card, save it, load it into a
+    fresh ServerKey on the card, serve one request (Contains) with the bits
+    of the server it was saved from, then get_server_key(cache_path=) twice:
+    a miss that packs and saves, and a hit that must not pack.  Returns the
+    loaded server."""
+    import torch
+
+    from fhestring_tpu_torch import client as client_mod
+    from fhestring_tpu_torch import serialize
+
+    t0 = time.perf_counter()
+    server = client.get_server_key(with_ntt2)
+    torch.cuda.synchronize()
+    t_pack = time.perf_counter() - t0
+    path = os.path.join(workdir, f"{label}.npz")
+    t0 = time.perf_counter()
+    serialize.save_packed_server_key(path, server)
+    t_save = time.perf_counter() - t0
+    mib = os.path.getsize(path) / 2**20
+    t0 = time.perf_counter()
+    loaded = serialize.load_packed_server_key(path, device=client.device)
+    torch.cuda.synchronize()
+    t_load = time.perf_counter() - t0
+    same_device_keys(loaded.backend.sc.keys, server.backend.sc.keys,
+                     f"{label} loaded")
+    s, pat = client.encrypt(S, 1), client.encrypt_no_padding(PAT)
+    got, want = loaded.contains(s, pat), server.contains(s, pat)
+    if not torch.equal(got.blocks.ct, want.blocks.ct):
+        fail(f"{label}: Contains through the loaded key differs from the "
+             f"server it was saved from")
+    if client.decrypt_char(got) != int(PAT in S):
+        fail(f"{label}: Contains through the loaded key decrypts wrong")
+    del server
+    cache = os.path.join(workdir, f"{label}-cache.npz")
+    t0 = time.perf_counter()
+    miss = client.get_server_key(with_ntt2, cache)
+    torch.cuda.synchronize()
+    t_miss = time.perf_counter() - t0
+    packs, pack = [], client_mod.pack_server_keys
+    client_mod.pack_server_keys = lambda *a, **k: packs.append(1) or pack(
+        *a, **k)
+    try:
+        t0 = time.perf_counter()
+        hit = client.get_server_key(with_ntt2, cache)
+        torch.cuda.synchronize()
+        t_hit = time.perf_counter() - t0
+    finally:
+        client_mod.pack_server_keys = pack
+    if packs or not os.path.exists(cache):
+        fail(f"{label}: get_server_key(cache_path=) packed on a hit")
+    same_device_keys(hit.backend.sc.keys, miss.backend.sc.keys,
+                     f"{label} cache hit")
+    del miss, hit
+    print(f"phase {phase} persistence ({label}): file {mib:.1f} MiB; pack "
+          f"{t_pack:.2f} s, save {t_save:.2f} s, load onto the card "
+          f"{t_load:.2f} s, keys bit-identical, Contains bit-identical to "
+          f"the saving server; get_server_key(cache_path=) miss {t_miss:.2f} "
+          f"s, hit {t_hit:.2f} s ({t_miss / t_hit:.1f}x); {CARD}")
+    return loaded
+
+
+def served_over_tcp(client, server, counters, phase):
+    """The six requests through a FheStringServer over ``server`` on
+    127.0.0.1, from a RemoteServerKey; results, PBS counts and launches as
+    in the in-process phases (the server runs in this process, so its
+    metrics are the ones read), wall time per request beside phase 11's."""
+    from fhestring_tpu_torch.service import FheStringServer, RemoteServerKey
+
+    tcp = FheStringServer(server).start()
+    try:
+        remote = RemoteServerKey(tcp.address, device=client.device,
+                                 timeout=300)
+        launches = requests(client, remote, counters, PROD_COUNTS, phase)
+    finally:
+        tcp.stop()
+    wall, local = requests.wall[phase], requests.wall[11]
+    print(f"phase {phase} service: FheStringServer on {tcp.address[0]}:"
+          f"{tcp.address[1]}, six requests over TCP against in process "
+          f"(phase 11): " + "; ".join(
+              f"{m} {wall[m] * 1e3:.0f} vs {local[m] * 1e3:.0f} ms"
+              for m in wall)
+          + f"; the six {sum(wall.values()) * 1e3:.0f} vs "
+          f"{sum(local.values()) * 1e3:.0f} ms; {CARD}")
+    return launches
+
+
+def limb_route32_kernels(dkeys, phase, batch=8):
+    """The 32-bit limb route's K3 launches at its shapes: a step's digits
+    of the three gadget levels (limbs 1 and 2 zero) against each level's
+    rows of the turbo bsk_limbs, on the card against the plain version,
+    fresh and accumulating."""
+    import torch
+
+    from fhestring_tpu_torch.crypto import pbs
+    from fhestring_tpu_torch.crypto.kernels import ext_product as ep
+
+    dev = dkeys.bsk_limbs.device
+    p = dkeys.params
+    N, kp1 = p.polynomial_size, p.glwe_dimension + 1
+    gen = torch.Generator().manual_seed(phase)
+    acc = (torch.randint(-2**63, 2**63 - 1, (batch, kp1, N), dtype=torch.int64,
+                         generator=gen) & ~0xFFFFFFFF).to(dev)
+    a = torch.randint(0, 2 * N, (batch,), dtype=torch.int32,
+                      generator=gen).to(dev)
+    dl = pbs._digit_buffer(acc.shape, p.pbs_level, dev)
+    pbs._digits_levels(acc, a, dl)
+    worst = 0
+    for lev in range(p.pbs_level):
+        key = dkeys.bsk_limbs[0, lev * kp1:(lev + 1) * kp1]
+        want = ep.ext_product_plain(dl[lev], key)
+        got = ep.ext_product(dl[lev], key)
+        summed = ep.ext_product(dl[lev], key, out=acc.clone(),
+                                accumulate=True)
+        worst = max(worst, max_abs_err(got, want))
+        if not (torch.equal(got, want) and torch.equal(summed, acc + want)):
+            fail(f"ext_product on the 32-bit route, level {lev}, differs "
+                 f"from its plain version")
+    print(f"phase {phase} K3 on the 32-bit route: B={batch} N={N}, the "
+          f"{p.pbs_level} gadget levels' digits against each level's key "
+          f"rows, fresh and accumulating, bit-exact (max |diff| {worst})")
+
+
+def use_ntt_route(dkeys, client, phase, batches=(8, 256)):
+    """pbs_batch(use_ntt=True) against pbs_batch through K2 in its exact
+    mode, bit for bit, with both times."""
+    import dataclasses
+
+    import torch
+
+    from fhestring_tpu_torch.crypto import keys, pbs
+
+    ntt_keys = dataclasses.replace(dkeys, bsk_ntt=dkeys.bsk_ntt64)
+    bank = keys.pack_luts([TABLE], dkeys.params, client.device)
+    line = []
+    for b in batches:
+        msgs, cts = encrypt_msgs(client, b, b)
+        idx = torch.zeros(b, dtype=torch.int64, device=client.device)
+        ms, got = cuda_ms(lambda: pbs.pbs_batch(cts, idx, bank, ntt_keys,
+                                                use_ntt=True))
+        k2_ms, want = cuda_ms(lambda: pbs.pbs_batch(cts, idx, bank, dkeys))
+        if not torch.equal(got, want):
+            fail(f"pbs_batch(use_ntt=True) at B={b} differs from K2 exact")
+        line.append(f"B={b} {ms:.1f} ms ({b / ms * 1e3:.1f} PBS/s), K2 "
+                    f"exact {k2_ms:.2f} ms")
+    print(f"phase {phase} use_ntt route ({dkeys.params.name}): bit-identical "
+          f"to K2's exact mode; " + "; ".join(line) + f"; {CARD}")
+
+
 def main() -> int:
     import torch
 
@@ -876,7 +1093,9 @@ def main() -> int:
         capture_output=True, text=True, check=True).stdout.strip()
     print(f"phase 1 device: {name} x{count}; torch {torch.__version__} "
           f"cuda {torch.version.cuda}")
-    print(smi.splitlines()[0])
+    global CARD
+    CARD = smi.splitlines()[0]
+    print(CARD)
 
     # 2. kernel builds, in parallel -------------------------------------------
     t0 = time.perf_counter()
@@ -967,24 +1186,13 @@ def main() -> int:
     server_nk = client.get_server_key(with_ntt2=False)
     if server_nk.backend.sc.keys.bsk_ntt64 is not None:
         fail("get_server_key(with_ntt2=False) packed the NTT key")
-    # the share of a request the card spends in the replayed step graphs:
-    # CUDA events around every replay
     from fhestring_tpu_torch.crypto import pbs
-    spans, replay = [], pbs._replay_steps
-
-    def timed_replay(entry, use_ntt2):
-        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-        start.record()
-        replay(entry, use_ntt2)
-        end.record()
-        spans.append((start, end))
-
-    pbs._replay_steps = timed_replay
-    k5_launches, k3_launches, _ = requests(
-        client, server_nk, [(rd.rotate_diff_decompose, n),
-                            (ep.ext_product, n), (br64.blind_rotate64, 0)],
-        PROD_COUNTS, 15, spans)
-    pbs._replay_steps = replay
+    spans = []
+    with timed_replays(spans):
+        k5_launches, k3_launches, _ = requests(
+            client, server_nk, [(rd.rotate_diff_decompose, n),
+                                (ep.ext_product, n), (br64.blind_rotate64, 0)],
+            PROD_COUNTS, 15, spans)
     stepwise_throughput(client, dkeys, bank, 16)
     del client, server, server_nk, dkeys, khat, bank
     pbs._STEP_GRAPHS.clear()
@@ -993,6 +1201,36 @@ def main() -> int:
     # -- the ported CLI, all 52 method variants, on the card ------------------
     cli_on_the_card("turbo", TURBO_COUNTS, 17)
     cli_on_the_card("prod", PROD_COUNTS, 18)
+
+    # -- persistence, the service and the two newer routes, on the card --
+    import shutil
+
+    from fhestring_tpu_torch.client import ClientKey
+
+    workdir = os.path.join(ROOT, "fhestring_tpu_torch", "build", "smoke")
+    os.makedirs(workdir, exist_ok=True)
+    try:
+        turbo = ClientKey(PARAM_TURBO, seed=0, device=dev)
+        persistence(turbo, "turbo", None, workdir, 19)
+        client = ClientKey(PARAM_PROD, seed=0, device=dev)
+        server = persistence(client, "prod", None, workdir, 19)
+        persistence(client, "prod-no-ntt", False, workdir, 19)
+    finally:
+        shutil.rmtree(workdir)
+    served_over_tcp(client, server, [(br64.blind_rotate64, 1)], 20)
+
+    server_nk32 = turbo.get_server_key(with_ntt2=False)
+    limb_route32_kernels(server_nk32.backend.sc.keys, 21)
+    n32 = PARAM_TURBO.lwe_dimension * PARAM_TURBO.pbs_level
+    with timed_replays(spans):
+        requests(turbo, server_nk32, [(ep.ext_product, n32),
+                                      (rd.rotate_diff_decompose, 0),
+                                      (br.blind_rotate32, 0)], TURBO_COUNTS,
+                 21, spans)
+    use_ntt_route(server.backend.sc.keys, client, 21)
+    del turbo, client, server, server_nk32
+    pbs._STEP_GRAPHS.clear()
+    torch.cuda.empty_cache()
 
     # One step at the batch of phase 13: K3 and K4 compute the same function
     # (the exact mode's 44 transforms, 21 (la, lb) pairs x 4 (r, col)

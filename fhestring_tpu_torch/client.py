@@ -15,6 +15,7 @@ same secret keys and ciphertexts as the JAX package's ``ClientKey``.
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 from .ciphertext import FheChar, FheString, PublicParameters, blocks_from_numpy
 from .crypto.keys import pack_server_keys
@@ -26,23 +27,38 @@ from . import torus
 NB = 4
 
 
+def default_device(device=None) -> torch.device:
+    """``device``, or the card where none is given.  Without a CUDA device
+    the default raises: the CPU runs only where the caller asks for it."""
+    if device is not None:
+        return torch.device(device)
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device: the port runs on the card by default; pass "
+            "device=\"cpu\" to run on the CPU")
+    return torch.device("cuda")
+
+
 class ClientKey:
     def __init__(self, params: CryptoParams = PARAM_PROD,
                  seed: int | None = 0, native_keygen: bool | None = None,
-                 device="cpu"):
+                 device=None):
         """seed=None uses a fresh AES-CTR key (secure); an int seed gives a
         deterministic AES-CTR stream (tests/benchmarks).
 
         native_keygen: use the C++ keygen (much faster at production
         parameters).  Default: auto — native for production sizes
         (N >= 1024) when a compiler is available, NumPy otherwise.
-        device: where encrypted tensors are created.
+        device: where encrypted tensors are created and, by default, the
+        server key is packed.  None (the default) means the card, "cuda";
+        where there is none it raises, and ``device="cpu"`` runs on the
+        CPU.
         """
         from . import native
         from .native import SecureRng
 
         self.params = params
-        self.device = device
+        self.device = default_device(device)
         self._rng = SecureRng(seed=seed)
         if native_keygen is None:
             native_keygen = (params.polynomial_size >= 1024
@@ -58,7 +74,7 @@ class ClientKey:
 
     @classmethod
     def from_params(cls, params: CryptoParams = PARAM_PROD,
-                    seed: int | None = 0, device="cpu") -> "ClientKey":
+                    seed: int | None = 0, device=None) -> "ClientKey":
         return cls(params, seed, device=device)
 
     def get_server_key(self, with_ntt2: bool | None = None,
@@ -68,26 +84,50 @@ class ClientKey:
         parameters are the JAX package's ``ClientKey.get_server_key``'s.
 
         with_ntt2: also pack the NTT-domain bootstrap key, which the
-        whole-rotation kernels (K1, K2) read.  False leaves it out: a
-        64-bit set is then served by the step-wise K3 route, and a
-        32-bit set cannot be served (``shortint.pbs_route``).  None (the
+        whole-rotation kernels (K1, K2) read.  False leaves it out: the
+        set is then served by a step-wise route over the limb planes, K5 +
+        K3 at 64 bits, digits + K3 per gadget level at 32 bits
+        (``shortint.pbs_route``).  None (the
         default) packs it on every device.  The JAX package's default packs
         it only off CPU; here the CPU path runs the plain versions of K1
         and K2, which read it.  The bits are the same either way.
 
-        cache_path: the JAX package's packed-key checkpoint (.npz).  It
-        needs the port of ``serialize.py``, which is still to come
-        (ROADMAP.md, Queue 1 item 3): any value but None raises."""
+        cache_path: optional packed-key checkpoint (.npz, the format of
+        ``serialize.save_packed_server_key``, which either package loads).
+        If it exists, the device-format keys are loaded instead of packed;
+        a file of another parameter set is refused, and one that lacks the
+        NTT-domain key with_ntt2 asks for is re-packed and overwritten.  On
+        a miss the packed keys are saved there after packing."""
+        import os
+
         from .server import ServerKey
 
-        if cache_path is not None:
-            raise NotImplementedError(
-                "get_server_key(cache_path=) needs the port of serialize.py, "
-                "which ROADMAP.md lists as still to come (Queue 1 item 3)")
-        device = self.device if device is None else device
-        return ServerKey(pack_server_keys(self._server_raw, device,
-                                          with_ntt2=with_ntt2 is not False),
-                         self.params)
+        device = self.device if device is None else torch.device(device)
+        with_ntt2 = with_ntt2 is not False
+        if cache_path and os.path.exists(cache_path):
+            from . import serialize
+
+            srv = serialize.load_packed_server_key(cache_path, device=device)
+            if srv.params != self.params:
+                raise ValueError(
+                    f"packed-key cache {cache_path!r} was created for "
+                    f"parameter set {srv.params.name!r}, not "
+                    f"{self.params.name!r}")
+            dk = srv.backend.sc.keys
+            ntt_key = (dk.bsk_ntt32 if self.params.torus_bits == 32
+                       else dk.bsk_ntt64)
+            if not with_ntt2 or ntt_key is not None:
+                return srv
+            # Packed without the NTT-domain key: loading it as it is would
+            # silently drop the whole-rotation kernel.  Re-pack with it and
+            # overwrite the checkpoint.
+        srv = ServerKey(pack_server_keys(self._server_raw, device,
+                                         with_ntt2=with_ntt2), self.params)
+        if cache_path:
+            from . import serialize
+
+            serialize.save_packed_server_key(cache_path, srv)
+        return srv
 
     def get_public_parameters(self) -> PublicParameters:
         return self.public_parameters

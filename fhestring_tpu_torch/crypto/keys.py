@@ -18,15 +18,20 @@ device path reads:
   (``kernels/blind_rotate32.py``) or P = 8 limbs of the u64 value
   (``kernels/blind_rotate64.py``, whose step ``kernels/ntt_ext.py`` reads
   it too).  Packed unless ``with_ntt2=False``.
-- 64-bit bootstrap key limbs: int8 [n, R, k+1, 8, 2N], for the step-wise
+- Bootstrap key limbs: int8 [n, R, k+1, 8, 2N], for the step-wise
   external product (``kernels/ext_product.py``): the 8 balanced byte-limb
   planes of each key poly doubled with its negation, P = (K, -K), each
   plane reversed: plane[i] = limb(P)[-i mod 2N].  The limbs of -K are those
   of the negated u64 value (-(-128) is no int8).  Reversed, the 4
   consecutive digit indices of one tensor-core fragment word are 4
-  ascending bytes.  Un-reversed (``doubled_limbs``) this is the JAX
-  ``bsk_limbs``; the JAX kernel's further doubling to 4N is a layout for
-  the TPU's lanes and is not kept.  PARAM_PROD: 97.3 MB.
+  ascending bytes.  The R = (k+1)*ell rows are level-major (row lev*(k+1)
+  + r), so that each gadget level's (k+1) x (k+1) polys are one
+  contiguous key for one launch of the external product; the JAX rows are
+  r*ell + lev, the same order when ell = 1.  Un-reversed and in the JAX
+  row order (``jax_bsk_limbs``) this is the JAX ``bsk_limbs``; the JAX
+  kernel's further doubling to 4N is a layout for the TPU's lanes and is
+  not kept.  Packed for every 64-bit set, and for a 32-bit set without
+  its NTT-domain key.  PARAM_PROD: 97.3 MB; turbo: 292 MB.
 - LUT bank: doubled test polynomials, int64 torus [L, 2N].
 
 These replace the JAX package's ``crypto/keys.py`` layouts; the numpy
@@ -70,8 +75,13 @@ class DeviceServerKeys:
     # 64-bit-torus set, else None.
     bsk_ntt64: torch.Tensor | None = None
     # int8 [n, R, k+1, 8, 2N]: reversed byte-limb planes of the doubled polys
-    # of a 64-bit-torus bootstrap key (the step-wise route), else None.
+    # of the bootstrap key, rows level-major (the step-wise routes), or None.
     bsk_limbs: torch.Tensor | None = None
+    # int16, the layout of bsk_ntt32 or bsk_ntt64 by family: the NTT-domain
+    # key of the use_ntt route (pack_server_keys(with_ntt=True)), or None.
+    # The same tensor as the family's whole-rotation key when both are
+    # packed.
+    bsk_ntt: torch.Tensor | None = None
 
     @property
     def device(self) -> torch.device:
@@ -139,9 +149,19 @@ def pack_ksk(ksk, p: CryptoParams, device) -> torch.Tensor:
     return padded
 
 
-def pack_bsk_limbs(bsk, device) -> torch.Tensor:
-    """u64 [n, R, k+1, N] key polys (numpy or int64 tensor) -> int8
-    [n, R, k+1, 8, 2N]: the balanced byte limbs (limb 7's carry dropped, as
+def level_major(levels: int, kp1: int, device=None) -> torch.Tensor:
+    """Row permutation from the JAX order (r*ell + lev) of the R key rows
+    to the level-major order (lev*(k+1) + r): rows[lev*kp1 + r] = r*ell +
+    lev.  Its inverse is ``argsort``."""
+    lev, r = torch.meshgrid(torch.arange(levels), torch.arange(kp1),
+                            indexing="ij")
+    return (r * levels + lev).reshape(-1).to(device)
+
+
+def pack_bsk_limbs(bsk, device, levels: int = 1) -> torch.Tensor:
+    """u64 [n, R, k+1, N] key polys (numpy or int64 tensor; rows r*ell +
+    lev, R = (k+1)*levels) -> int8 [n, R, k+1, 8, 2N] with the rows
+    level-major: the balanced byte limbs (limb 7's carry dropped, as
     ``fhestring_tpu.crypto.keys.balanced_limbs_u64``) of each poly doubled
     with its negation, (K, -K mod 2^64), each plane reversed:
     out[..., lb, i] = limb_lb of the doubled poly at -i mod 2N."""
@@ -150,8 +170,9 @@ def pack_bsk_limbs(bsk, device) -> torch.Tensor:
     out = torch.empty((n_steps, R, kp1, KEY_PLANES64, 2 * N), dtype=torch.int8,
                       device=device)
     reverse = (-torch.arange(2 * N, device=device)) % (2 * N)
+    rows = level_major(levels, R // levels, device)
     for s in range(0, n_steps, _STEP_CHUNK):
-        chunk = bsk[s:s + _STEP_CHUNK].to(device)
+        chunk = bsk[s:s + _STEP_CHUNK].to(device)[:, rows]
         limbs = balanced_limbs(torch.cat([chunk, -chunk], dim=-1),
                                KEY_PLANES64)              # [c, R, kp1, 2N, 8]
         out[s:s + _STEP_CHUNK] = limbs.movedim(-1, -2)[..., reverse]
@@ -167,8 +188,53 @@ def doubled_limbs(bsk_limbs: torch.Tensor) -> torch.Tensor:
     return bsk_limbs[..., reverse]
 
 
+def jax_bsk_limbs(bsk_limbs: torch.Tensor, levels: int) -> torch.Tensor:
+    """``pack_bsk_limbs``'s key in the JAX package's layout (its
+    ``DeviceServerKeys.bsk_limbs``): un-reversed, rows r*ell + lev."""
+    R = bsk_limbs.shape[1]
+    back = torch.argsort(level_major(levels, R // levels, bsk_limbs.device))
+    return doubled_limbs(bsk_limbs)[:, back]
+
+
+def bsk_from_limbs(jax_limbs: torch.Tensor) -> torch.Tensor:
+    """The raw key polys int64 (u64 bits) [n, R, k+1, N] from limb planes in
+    the JAX layout int8 [n, R, k+1, 8, 2N]: the first N coefficients are the
+    limbs of K itself, sum_lb limb_lb << 8 lb mod 2^64."""
+    N = jax_limbs.shape[-1] // 2
+    out = torch.zeros(jax_limbs.shape[:3] + (N,), dtype=torch.int64,
+                      device=jax_limbs.device)
+    for lb in range(jax_limbs.shape[3]):
+        out += jax_limbs[:, :, :, lb, :N].to(torch.int64) << (8 * lb)
+    return out
+
+
+def bsk_from_hats(khat: torch.Tensor, p: CryptoParams) -> torch.Tensor:
+    """The raw key polys int64 (u64 bits) [n, R, k+1, N] from the family's
+    NTT-domain key (``pack_bsk_ntt``): the inverse transform of the first
+    prime's hats gives each balanced limb mod 40961 (the 1/N the hats carry
+    cancels the inverse's missing scaling), which is the limb itself."""
+    planes = key_planes(p)
+    n_steps, _, R, cols, N = khat.shape
+    kp1 = cols // planes
+    tw = ntt.device_twiddles(N, str(khat.device))
+    q = ntt.PRIMES[0]
+    out = torch.empty((n_steps, R, kp1, N), dtype=torch.int64,
+                      device=khat.device)
+    for s in range(0, n_steps, _STEP_CHUNK):
+        hats = khat[s:s + _STEP_CHUNK].to(torch.int64) & 0xFFFF
+        res = ntt.ntt_inv(hats.movedim(1, 0), tw)[0]     # [c, R, cols, N]
+        limbs = torch.where(res > q // 2, res - q, res)
+        limbs = limbs.view(-1, R, kp1, planes, N)
+        value = torch.zeros_like(limbs[:, :, :, 0])
+        for lb in range(planes):
+            value += limbs[:, :, :, lb] << (8 * lb)
+        out[s:s + _STEP_CHUNK] = value << 32 if planes == KEY_PLANES else value
+    return out
+
+
 def pack_server_keys(srv_or_arrays, device, params: CryptoParams | None = None,
-                     with_ntt2: bool = True) -> DeviceServerKeys:
+                     with_ntt2: bool = True, with_ntt: bool = False
+                     ) -> DeviceServerKeys:
     """Pack the numpy ``bsk`` and ``ksk`` arrays of a ``ServerKeys`` (this
     package's numpy_ref or the JAX package's: the arrays are the same) onto
     ``device``, in the layout of the parameter set's torus family.
@@ -176,21 +242,27 @@ def pack_server_keys(srv_or_arrays, device, params: CryptoParams | None = None,
     the device keys are tagged with.
 
     with_ntt2: pack the NTT-domain bootstrap key (``bsk_ntt32`` or
-    ``bsk_ntt64``), which the whole-rotation kernels read.  A 64-bit set
-    always gets ``bsk_limbs`` too, as the JAX package's
-    ``pack_server_keys`` always packs its limb key."""
+    ``bsk_ntt64``), which the whole-rotation kernels read.  with_ntt: the
+    same hats as ``bsk_ntt``, for the use_ntt route (one tensor when both
+    are asked for).  ``bsk_limbs`` is packed for a 64-bit set always, as
+    the JAX package's ``pack_server_keys`` always packs its limb key, and
+    for a 32-bit set when it has no ``bsk_ntt32``: its served route then
+    reads the limbs."""
     bsk, ksk = srv_or_arrays.bsk, srv_or_arrays.ksk
     p = params or srv_or_arrays.params
     keys = DeviceServerKeys(params=p, ksk_limbs=pack_ksk(ksk, p, device))
-    if p.torus_bits == 64:
-        keys.bsk_limbs = pack_bsk_limbs(bsk, device)
-    if not with_ntt2:
+    if p.torus_bits == 64 or not with_ntt2:
+        keys.bsk_limbs = pack_bsk_limbs(bsk, device, p.pbs_level)
+    if not (with_ntt2 or with_ntt):
         return keys
     khat = pack_bsk_ntt(bsk, device, key_planes(p))
-    if p.torus_bits == 32:
-        keys.bsk_ntt32 = khat
-    else:
-        keys.bsk_ntt64 = khat
+    if with_ntt:
+        keys.bsk_ntt = khat
+    if with_ntt2:
+        if p.torus_bits == 32:
+            keys.bsk_ntt32 = khat
+        else:
+            keys.bsk_ntt64 = khat
     return keys
 
 

@@ -15,22 +15,28 @@ the 32-bit-torus family (turbo) every value is a multiple of 2**32, so the
 blind rotation carries only the u32 payload (int32); the 64-bit family
 (``PARAM_PROD``) carries the whole int64 accumulator.
 
-The 64-bit family has two blind-rotation routes, as the JAX package has:
-one launch of the whole n-step kernel (``blind_rotate64``, K2), or the
-step-wise route, one prologue and one external product per LWE step:
+Each family has a whole-rotation kernel (K1 at 32 bits, K2 at 64 bits:
+one launch for all n steps), the default and the served route when the
+NTT-domain key is packed.  The step-wise routes run one prologue and one
+external product per LWE step, as the JAX package's do:
 
     for j in range(n):
         dl  = rotate_diff_decompose(acc, a_j)            (K5)
         acc = acc + ext_product(dl, bsk_limbs[j])        (K3, use_pallas)
                   | ntt_ext(dl, bsk_ntt64[j])            (K4, use_ntt2)
 
-Both step-wise routes are exact and give the bits of K2's exact mode.  K3
-and K4 add their product into the accumulator themselves, so the eager
-loop is 2 launches a step.  On the card the n steps are captured once per
-(route, batch, key) into a CUDA graph over static buffers and replayed for
-every later batch of that shape: the host makes one graph launch instead of
-2n kernel launches.  On the CPU the loop is a plain Python loop over the
-plain versions.
+At 32 bits (gadget 2^8 x 3) use_pallas makes the three levels' digits in
+torch ops and runs K3 once per level, against that level's rows of
+``bsk_limbs``: the route of a 32-bit key packed without its NTT-domain key,
+which the JAX package serves by an XLA einsum.  use_ntt runs the CRT-NTT
+product step by step in torch ops, either family, as the JAX package runs
+it in XLA.  Every step-wise route is exact and gives the bits of the
+whole-rotation kernel's exact mode.  K3 and K4 add their product into the
+accumulator themselves.  On the card the n steps of a K3 or K4 route are
+captured once per (route, batch, key) into a CUDA graph over static buffers
+and replayed for every later batch of that shape: the host makes one graph
+launch instead of every launch of every step.  On the CPU the loop is a
+plain Python loop over the plain versions.
 """
 
 from __future__ import annotations
@@ -153,17 +159,70 @@ def sample_extract(acc: torch.Tensor, p: CryptoParams) -> torch.Tensor:
     return torch.cat([a.reshape(acc.shape[0], -1), acc[:, k, :1]], dim=-1)
 
 
+def _levels(acc_shape: tuple, key: torch.Tensor, use_ntt2: bool) -> int:
+    """Gadget levels of a step-wise route: bsk_limbs holds (k+1) x levels
+    rows (1 level at 64 bits; the 32-bit set's 3, whose route runs one K3
+    per level); the K4 route is 64-bit, 1 level."""
+    return 1 if use_ntt2 else key.shape[1] // acc_shape[1]
+
+
+def _digit_buffer(shape: tuple, levels: int, device) -> torch.Tensor:
+    """The steps' int8 digit limbs: [3, B, (k+1)N] (K5's output), or for
+    the 32-bit route [levels, 3, B, (k+1)N], whose limbs 1 and 2 stay zero
+    (a base-256 digit is one balanced int8 limb)."""
+    B, kp1, N = shape
+    if levels > 1:
+        return torch.zeros((levels, br64.DIGIT_LIMBS, B, kp1 * N),
+                           dtype=torch.int8, device=device)
+    return torch.empty((br64.DIGIT_LIMBS, B, kp1 * N), dtype=torch.int8,
+                       device=device)
+
+
+def gadget_digits32(diff: torch.Tensor) -> torch.Tensor:
+    """Balanced digits of the 32-bit gadget (2^8 x 3) of torus values,
+    int64 [3, ...] in [-128, 128), level 0 most significant: what
+    ``decompose(diff, 8, 3)`` gives, at once from the rounded top 24 bits.
+    With 128 added at every byte, each byte is its balanced digit + 128,
+    carries included (the top carry is dropped, as ``decompose`` drops
+    it)."""
+    width = br.BASE_LOG * br.LEVELS
+    top = torus.round_shr(diff, 64 - width) + sum(
+        128 << (br.BASE_LOG * i) for i in range(br.LEVELS))
+    shifts = torch.arange(width - br.BASE_LOG, -1, -br.BASE_LOG,
+                          device=diff.device)
+    return ((top[None] >> shifts.view((-1,) + (1,) * diff.dim())) & 255) - 128
+
+
+def _digits_levels(acc: torch.Tensor, a: torch.Tensor,
+                   dl: torch.Tensor) -> None:
+    """The 32-bit route's prologue in torch ops: rotate acc by X^a, take
+    the difference and its gadget digits (the JAX package's
+    ``_digit_limbs``) into limb 0 of dl [levels, 3, B, (k+1)N]; a digit is
+    one int8 limb."""
+    diff = negacyclic_rotate(acc, a.to(torch.int64)) - acc
+    dl[:, 0].copy_(gadget_digits32(diff).view(dl.shape[0], dl.shape[2],
+                                              dl.shape[3]))
+
+
 def _run_steps(acc: torch.Tensor, steps: torch.Tensor, key: torch.Tensor,
                use_ntt2: bool, dl: torch.Tensor | None = None
                ) -> torch.Tensor:
-    """The n steps, eagerly, updating acc in place: K5, then K3 or K4
-    adding into acc.  steps: int32 [n, B].  dl: the steps' digit buffer
-    (allocated here if not given).  Nothing in the loop allocates or reads
-    back to the host, so it can be captured."""
-    B, kp1, N = acc.shape
+    """The n steps, eagerly, updating acc in place: K5 (or the 32-bit
+    route's digits), then K3 or K4 adding into acc, K3 once per gadget
+    level.  steps: int32 [n, B].  dl: the steps' digit buffer (allocated
+    here if not given).  Nothing in the loop reads back to the host, and
+    the kernels allocate nothing, so it can be captured."""
+    levels = _levels(acc.shape, key, use_ntt2)
     if dl is None:
-        dl = torch.empty((br64.DIGIT_LIMBS, B, kp1 * N), dtype=torch.int8,
-                         device=acc.device)
+        dl = _digit_buffer(acc.shape, levels, acc.device)
+    if levels > 1:
+        kp1 = acc.shape[1]
+        for j in range(steps.shape[0]):
+            _digits_levels(acc, steps[j], dl)
+            for lev in range(levels):
+                ep.ext_product(dl[lev], key[j, lev * kp1:(lev + 1) * kp1],
+                               out=acc, accumulate=True)
+        return acc
     product = ne.ntt_ext if use_ntt2 else ep.ext_product
     for j in range(steps.shape[0]):
         rd.rotate_diff_decompose(acc, steps[j], out=dl)
@@ -182,6 +241,7 @@ class _StepGraph:
     # must not go back to the allocator while the graph lives
     dl: torch.Tensor
     k4_body: int | None        # the body of K4 the capture picked (K4 route)
+    levels: int = 1            # K3 launches a step (3 on the 32-bit route)
 
 
 STEP_GRAPHS_KEPT = 16  # least recently used graphs beyond this are dropped
@@ -194,9 +254,12 @@ def _capture_steps(shape: tuple, n: int, key: torch.Tensor,
     """Capture the n steps at accumulator shape [B, k+1, N] into a CUDA
     graph over buffers of its own.  The kernels are built and loaded first
     (a capture can do neither); no kernel runs during the capture, so the
-    wrappers' launch counts are put back after it."""
+    wrappers' launch counts are put back after it.  The 32-bit route's
+    torch ops take their temporaries from the graph's own memory pool."""
     dev = key.device
-    rd.prepare(dev)
+    levels = _levels(shape, key, use_ntt2)
+    if levels == 1:
+        rd.prepare(dev)
     k4_body = None
     if use_ntt2:
         ne.prepare(dev, shape[-1])
@@ -206,8 +269,7 @@ def _capture_steps(shape: tuple, n: int, key: torch.Tensor,
     product = ne.ntt_ext if use_ntt2 else ep.ext_product
     acc = torch.zeros(shape, dtype=torch.int64, device=dev)
     steps = torch.zeros((n, shape[0]), dtype=torch.int32, device=dev)
-    dl = torch.empty((br64.DIGIT_LIMBS, shape[0], shape[1] * shape[2]),
-                     dtype=torch.int8, device=dev)
+    dl = _digit_buffer(shape, levels, dev)
     graph = torch.cuda.CUDAGraph()
     counts = rd.rotate_diff_decompose.launches, product.launches
     bodies = dict(ne.ntt_ext.bodies)
@@ -217,7 +279,7 @@ def _capture_steps(shape: tuple, n: int, key: torch.Tensor,
     finally:
         rd.rotate_diff_decompose.launches, product.launches = counts
         ne.ntt_ext.bodies.update(bodies)
-    return _StepGraph(graph, key, acc, steps, dl, k4_body)
+    return _StepGraph(graph, key, acc, steps, dl, k4_body, levels)
 
 
 def _step_graph(shape: tuple, n: int, key: torch.Tensor,
@@ -235,31 +297,37 @@ def _step_graph(shape: tuple, n: int, key: torch.Tensor,
 
 def _replay_steps(entry: _StepGraph, use_ntt2: bool) -> None:
     """Replay the captured steps on the entry's buffers.  A replay runs no
-    wrapper, so it counts its kernel nodes itself: n launches of K5 and n
-    of the route's product kernel (K4's also by body)."""
+    wrapper, so it counts its kernel nodes itself: n launches of K5 (none
+    on the 32-bit route, whose digits are torch ops) and n of the route's
+    product kernel per gadget level (K4's also by body)."""
     entry.graph.replay()
     n = entry.steps.shape[0]
-    rd.rotate_diff_decompose.launches += n
+    if entry.levels == 1:
+        rd.rotate_diff_decompose.launches += n
     if use_ntt2:
         ne.ntt_ext.launches += n
         ne.ntt_ext.bodies[entry.k4_body] += n
     else:
-        ep.ext_product.launches += n
+        ep.ext_product.launches += n * entry.levels
 
 
 def _blind_rotate_stepwise(acc: torch.Tensor, amounts: torch.Tensor,
                            keys: DeviceServerKeys, use_ntt2: bool,
                            graph: bool = True) -> torch.Tensor:
-    """The step-wise 64-bit route: per step K5, then K3 or K4 adding into
-    the accumulator.  On a CUDA device the steps are replayed from a
-    captured graph (graph=False: launched one by one, for comparison); a
-    failed capture or replay raises.  On the CPU the steps run one by one
-    on the plain versions."""
+    """A step-wise route: per step the digits (K5, or torch ops on the
+    32-bit route), then K3 (once per gadget level) or K4 adding into the
+    accumulator.  On a CUDA device the steps are replayed from a captured
+    graph (graph=False: launched one by one, for comparison); a failed
+    capture or replay raises.  On the CPU the steps run one by one on the
+    plain versions."""
     key = keys.bsk_ntt64 if use_ntt2 else keys.bsk_limbs
     if key is None:
         raise ValueError("the step-wise route needs "
                          + ("bsk_ntt64: pack_server_keys(with_ntt2=True)"
-                            if use_ntt2 else "bsk_limbs (a 64-bit set)"))
+                            if use_ntt2 else
+                            "bsk_limbs: pack_server_keys packs it for a "
+                            "64-bit set, and for a 32-bit set with "
+                            "with_ntt2=False"))
     steps = amounts.t().contiguous()                    # [n, B]
     if acc.device.type != "cuda" or not graph or acc.shape[0] == 0:
         return _run_steps(acc.clone(), steps, key, use_ntt2)
@@ -270,11 +338,29 @@ def _blind_rotate_stepwise(acc: torch.Tensor, amounts: torch.Tensor,
     return entry.acc.clone()
 
 
+def _blind_rotate_ntt(acc: torch.Tensor, amounts: torch.Tensor,
+                      keys: DeviceServerKeys) -> torch.Tensor:
+    """The use_ntt route: the CRT-NTT external product step by step in
+    torch ops against ``keys.bsk_ntt``, exact, on the tensors' device.  The
+    JAX package runs this route in XLA (``step_ntt``), not in a Pallas
+    kernel; its arithmetic here is that of the whole-rotation kernels'
+    exact mode as written in torch (two primes, centered CRT, shift planes
+    recombined mod 2^64), so its bits are theirs."""
+    if keys.bsk_ntt is None:
+        raise ValueError("use_ntt needs bsk_ntt: "
+                         "pack_server_keys(with_ntt=True)")
+    if keys.params.torus_bits == 64:
+        return br64.blind_rotate64_plain(acc, amounts, keys.bsk_ntt)
+    hi = br.blind_rotate32_plain(torus.hi32(acc).contiguous(), amounts,
+                                 keys.bsk_ntt)
+    return torus.from_hi32(hi)
+
+
 def blind_rotate(acc: torch.Tensor, lwe_2n: torch.Tensor,
                  keys: DeviceServerKeys, rounded: bool = False,
                  approx: bool = False, use_pallas: bool = False,
-                 use_ntt2: bool = False, use_fused: bool = False
-                 ) -> torch.Tensor:
+                 use_ntt2: bool = False, use_fused: bool = False,
+                 use_ntt: bool = False) -> torch.Tensor:
     """acc: int64 [B, k+1, N]; lwe_2n: int64 [B, n+1] in [0, 2N).  Rotates
     acc by -phase homomorphically: first by -b (the body, column n), then
     the n steps over the mask coefficients.
@@ -283,23 +369,36 @@ def blind_rotate(acc: torch.Tensor, lwe_2n: torch.Tensor,
     (``numpy_ref.blind_rotate(rounded=rounded, min_shift=3 if approx else
     0)``); the 32-bit kernel runs the exact mode only.
 
-    use_pallas / use_ntt2 (the JAX package's keyword names) take the 64-bit
-    step-wise route (module docstring), exact mode only: use_pallas means
-    the K3 route (``ext_product`` against ``keys.bsk_limbs``), use_ntt2 the
-    K4 route (``ntt_ext`` against ``keys.bsk_ntt64``); use_ntt2 wins when
-    both are set, as in the JAX package.  Neither: the whole-rotation
-    kernel of the family.  use_fused (the JAX package's name for its
-    whole-rotation kernels) asks for that kernel by name and wins over the
-    step-wise keywords, as it does there."""
+    The route, by the JAX package's keyword names and with its precedence
+    use_fused > use_ntt2 > use_ntt > use_pallas:
+
+    - use_fused, or no keyword: the whole-rotation kernel of the family
+      (K1 or K2);
+    - use_ntt2: the 64-bit K4 route (K5, then ``ntt_ext`` against
+      ``keys.bsk_ntt64``);
+    - use_ntt: the CRT-NTT product in torch ops (``_blind_rotate_ntt``),
+      either family;
+    - use_pallas: the limb-plane route against ``keys.bsk_limbs``: K5 then
+      ``ext_product`` (K3) at 64 bits; at 32 bits the digits in torch ops
+      and one K3 per gadget level (the JAX package runs an XLA einsum
+      there).
+
+    Every route but the whole-rotation kernel runs the exact mode only,
+    and all of them give the bits of that kernel's exact mode."""
     p = keys.params
     _check_kernel_shape(p)
     two_n = 2 * p.polynomial_size
     acc = negacyclic_rotate(acc, (two_n - lwe_2n[:, -1]) & (two_n - 1))
     amounts = lwe_2n[:, :p.lwe_dimension].to(torch.int32).contiguous()
-    if (use_pallas or use_ntt2) and not use_fused:
-        if p.torus_bits != 64 or rounded or approx:
-            raise ValueError("the step-wise route is the 64-bit family's "
-                             "exact mode only")
+    stepwise = not use_fused and (use_ntt2 or use_ntt or use_pallas)
+    if stepwise and (rounded or approx):
+        raise ValueError("the step-wise routes run the exact mode only")
+    if stepwise and use_ntt2 and p.torus_bits != 64:
+        raise ValueError("the K4 route (use_ntt2) is the 64-bit family's "
+                         "only")
+    if stepwise and use_ntt and not use_ntt2:
+        return _blind_rotate_ntt(acc.contiguous(), amounts, keys)
+    if stepwise:
         return _blind_rotate_stepwise(acc.contiguous(), amounts, keys,
                                       use_ntt2)
     if p.torus_bits == 64:
@@ -319,15 +418,15 @@ def blind_rotate(acc: torch.Tensor, lwe_2n: torch.Tensor,
 def pbs_batch(ct: torch.Tensor, lut_idx: torch.Tensor, lut_bank: torch.Tensor,
               keys: DeviceServerKeys, rounded: bool = False,
               approx: bool = False, use_pallas: bool = False,
-              use_ntt2: bool = False, use_fused: bool = False
-              ) -> torch.Tensor:
+              use_ntt2: bool = False, use_fused: bool = False,
+              use_ntt: bool = False) -> torch.Tensor:
     """Apply per-item LUTs to a batch of big-key LWE ciphertexts.
 
     ct: int64 [B, kN+1]; lut_idx: int64 [B] into lut_bank int64 [L, 2N].
     Returns int64 [B, kN+1] encrypting table[m] with fresh PBS noise.
-    rounded/approx: the blind rotation's mode; use_pallas: the K3
-    step-wise route; use_ntt2: the K4 step-wise route; use_fused: the
-    whole-rotation kernel, which is also the default (``blind_rotate``).
+    rounded/approx: the blind rotation's mode; use_fused (the default),
+    use_ntt2, use_ntt, use_pallas: the route, as ``blind_rotate`` reads
+    them.
     """
     p = keys.params
     _check_kernel_shape(p)
@@ -347,4 +446,4 @@ def pbs_batch(ct: torch.Tensor, lut_idx: torch.Tensor, lut_bank: torch.Tensor,
     return sample_extract(
         blind_rotate(acc, lwe_nob, keys, rounded=rounded, approx=approx,
                      use_pallas=use_pallas, use_ntt2=use_ntt2,
-                     use_fused=use_fused), p)
+                     use_fused=use_fused, use_ntt=use_ntt), p)

@@ -53,27 +53,28 @@ def pbs_route(keys: DeviceServerKeys, on_cpu: bool) -> dict:
     route and mode, as the JAX package chooses them
     (``fhestring_tpu/shortint.py`` ``_pbs_padded``):
 
-    - 32-bit set: the whole-rotation kernel K1, exact.  Without its NTT key
-      the JAX package runs an XLA einsum, which is not ported: ValueError.
+    - 32-bit set with the NTT key (``bsk_ntt32``): the whole-rotation
+      kernel K1, exact.
     - 64-bit set with the NTT key (``bsk_ntt64``): the whole-rotation kernel
       K2, rounded + approx on the card (the JAX package's accelerator mode,
       calibrated on device in benchmarks/calibration_prod_r5.log), exact on
       CPU, as the JAX package's CPU path.
-    - 64-bit set without it: the step-wise K5 + K3 route (``use_pallas``),
-      exact, as the JAX package on an accelerator.
+    - Either set without it: the step-wise route over the limb planes
+      (``use_pallas``: K5 + K3 at 64 bits, digits + K3 per gadget level at
+      32 bits), exact, where the JAX package runs its Pallas kernel (64
+      bits) or an XLA einsum (32 bits).
 
     On CPU every route runs its kernels' plain versions, exact, so CPU
     outputs are bit-identical to the JAX package's CPU path whichever keys
     were packed."""
-    if keys.params.torus_bits == 32:
-        if keys.bsk_ntt32 is None:
-            raise ValueError(
-                "a 32-bit set needs its NTT-domain key: the JAX package's "
-                "route without it (an XLA einsum) is not ported yet "
-                "(ROADMAP.md); pack with with_ntt2=None or True")
-        return {}
-    if keys.bsk_ntt64 is None:
+    turbo = keys.params.torus_bits == 32
+    if (keys.bsk_ntt32 if turbo else keys.bsk_ntt64) is None:
+        if keys.bsk_limbs is None:
+            raise ValueError("the server key has neither its NTT-domain key "
+                             "nor bsk_limbs; pack it with pack_server_keys")
         return {"use_pallas": True}
+    if turbo:
+        return {}
     return {"rounded": not on_cpu, "approx": not on_cpu}
 
 

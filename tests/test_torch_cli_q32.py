@@ -175,7 +175,7 @@ class Pair:
         self.args = args
         self.jck = JaxClientKey(jax_p, seed=SEED)
         self.jsrv = self.jck.get_server_key()
-        self.ck = ClientKey(port_p, seed=SEED)   # same seed, same secret key
+        self.ck = ClientKey(port_p, seed=SEED, device="cpu")   # same seed, same secret key
         np.testing.assert_array_equal(self.ck.secret.big_lwe_sk,
                                       self.jck.secret.big_lwe_sk)
         self.srv = ServerKey(pack_server_keys(self.jck._server_raw, "cpu",

@@ -111,7 +111,7 @@ def test_pbs_batch_cuda_equals_cpu(cuda, key_material, B):
 
 
 def test_contains_on_cuda_equals_cpu(cuda):
-    ck = ClientKey(P, seed=1)
+    ck = ClientKey(P, seed=1, device="cpu")
     s, pat = ck.encrypt("hello", 1), ck.encrypt_no_padding("ll")
     cpu_out = ck.get_server_key(device="cpu").contains(s, pat)
     out = ck.get_server_key(device=cuda).contains(
@@ -226,7 +226,7 @@ def test_contains64_on_cuda_equals_cpu_in_the_same_mode(cuda, monkeypatch):
     """ServerKey.contains on the card (which runs the production mode)
     equals the CPU plain version forced into the same mode, and launches
     the kernel once per PBS batch."""
-    ck = ClientKey(P64, seed=1)
+    ck = ClientKey(P64, seed=1, device="cpu")
     s, pat = ck.encrypt("hello", 1), ck.encrypt_no_padding("ll")
     server = ck.get_server_key(device=cuda)
     before = br64.blind_rotate64.launches
@@ -597,7 +597,7 @@ def test_contains_without_ntt_key_on_cuda_equals_cpu(stepwise):
     """A ServerKey packed with with_ntt2=False serves contains through K5 +
     K3 on the card (n launches of each per PBS batch, no K2), equal to the
     CPU path on the same keys; both run exact."""
-    ck = ClientKey(P64, seed=1)
+    ck = ClientKey(P64, seed=1, device="cpu")
     s, pat = ck.encrypt("hello", 1), ck.encrypt_no_padding("ll")
     server = ck.get_server_key(with_ntt2=False, device=stepwise)
     assert server.backend.sc.keys.bsk_ntt64 is None
@@ -723,3 +723,104 @@ def test_cli_on_the_card_passes_a_handful(cuda, capsys):
     out = capsys.readouterr().out.splitlines()
     assert rc == 0 and out[-1] == f"{len(methods)}/{len(methods)} methods passed"
     assert sum(ln.startswith("Test Passed: OK") for ln in out) == len(methods)
+
+
+# ---------------------------------------------------------------------------
+# the 32-bit limb route, use_ntt, and a packed key saved and loaded
+# ---------------------------------------------------------------------------
+
+def _random_cts(p, B, seed):
+    rng = np.random.default_rng(seed)
+    cts = rng.integers(0, 1 << 64, size=(B, p.big_lwe_dimension + 1),
+                       dtype=np.uint64)
+    if p.torus_bits == 32:
+        cts &= np.uint64(0xFFFFFFFF00000000)
+    return cts, torch.from_numpy(np.arange(B) % 2)
+
+
+TABLES = [[(3 * x + 1) % 16 for x in range(16)], list(range(16))]
+
+
+@pytest.mark.parametrize("B", [5, 40])
+def test_32bit_limb_route_cuda_equals_cpu(stepwise, key_material, B):
+    """A 32-bit key packed with_ntt2=False on the card: pbs_batch through
+    its route (use_pallas: digits in torch ops, one K3 per gadget level,
+    replayed from the step graph) equals the same route on CPU, the eager
+    loop on the card and K1 on the card; 3n launches of K3, none of K5."""
+    srv, dev = key_material
+    limbs = keys.pack_server_keys(srv, stepwise, params=P, with_ntt2=False)
+    cpu = keys.pack_server_keys(srv, "cpu", params=P, with_ntt2=False)
+    cts, idx = _random_cts(P, B, B)
+    before = (rd.rotate_diff_decompose.launches, ep.ext_product.launches)
+    got = pbs.pbs_batch(torus.from_numpy(cts, stepwise), idx.to(stepwise),
+                        keys.pack_luts(TABLES, P, stepwise), limbs,
+                        **shortint.pbs_route(limbs, on_cpu=False))
+    n = P.lwe_dimension
+    assert (rd.rotate_diff_decompose.launches,
+            ep.ext_product.launches) == (before[0], before[1] + 3 * n)
+    whole = pbs.pbs_batch(torus.from_numpy(cts, stepwise), idx.to(stepwise),
+                          keys.pack_luts(TABLES, P, stepwise), dev)
+    want = pbs.pbs_batch(torus.from_numpy(cts), idx,
+                         keys.pack_luts(TABLES, P, "cpu"), cpu,
+                         use_pallas=True)
+    np.testing.assert_array_equal(torus.to_numpy(got), torus.to_numpy(want))
+    np.testing.assert_array_equal(torus.to_numpy(whole), torus.to_numpy(want))
+    acc = torch.randint(-2**63, 2**63 - 1, (B, 2, P.polynomial_size),
+                        dtype=torch.int64) & ~0xFFFFFFFF
+    amt = torch.randint(0, 2 * P.polynomial_size, (B, n), dtype=torch.int32)
+    graphed = pbs._blind_rotate_stepwise(acc.to(stepwise), amt.to(stepwise),
+                                         limbs, False)
+    eager = pbs._blind_rotate_stepwise(acc.to(stepwise), amt.to(stepwise),
+                                       limbs, False, graph=False)
+    assert torch.equal(graphed, eager)
+    assert torch.equal(graphed.cpu(),
+                       pbs._blind_rotate_stepwise(acc, amt, cpu, False))
+
+
+@pytest.mark.parametrize("family", ["32", "64"])
+def test_use_ntt_cuda_equals_the_whole_rotation(cuda, key_material,
+                                                key_material64, family):
+    """pbs_batch(use_ntt=True) on the card: the bits of the whole-rotation
+    kernel's exact mode on the card and of use_ntt on CPU."""
+    p, (srv, dev) = ((P, key_material) if family == "32"
+                     else (P64, key_material64))
+    ntt_keys = keys.pack_server_keys(srv, cuda, params=p, with_ntt=True)
+    cpu = keys.pack_server_keys(srv, "cpu", params=p, with_ntt2=False,
+                                with_ntt=True)
+    cts, idx = _random_cts(p, 9, 3)
+    got = pbs.pbs_batch(torus.from_numpy(cts, cuda), idx.to(cuda),
+                        keys.pack_luts(TABLES, p, cuda), ntt_keys,
+                        use_ntt=True)
+    whole = pbs.pbs_batch(torus.from_numpy(cts, cuda), idx.to(cuda),
+                          keys.pack_luts(TABLES, p, cuda), dev)
+    want = pbs.pbs_batch(torus.from_numpy(cts), idx,
+                         keys.pack_luts(TABLES, p, "cpu"), cpu, use_ntt=True)
+    assert torch.equal(got, whole)
+    np.testing.assert_array_equal(torus.to_numpy(got), torus.to_numpy(want))
+
+
+@pytest.mark.parametrize("with_ntt2", [True, False], ids=["ntt", "no_ntt"])
+@pytest.mark.parametrize("params", [P, P64], ids=lambda p: p.name)
+def test_packed_key_round_trip_on_the_card(stepwise, tmp_path, params,
+                                           with_ntt2):
+    """A server key packed on the card, saved and loaded onto the card:
+    the same device keys, and the same bits of to_upper; a second
+    get_server_key(cache_path=) is a hit."""
+    from fhestring_tpu_torch import serialize
+
+    ck = ClientKey(params, seed=4, device=stepwise)
+    path = str(tmp_path / "packed.npz")
+    srv = ck.get_server_key(with_ntt2, path)
+    loaded = serialize.load_packed_server_key(path, device=stepwise)
+    for field in ("bsk_limbs", "ksk_limbs", "bsk_ntt32", "bsk_ntt64"):
+        a = getattr(loaded.backend.sc.keys, field)
+        b = getattr(srv.backend.sc.keys, field)
+        assert (a is None) == (b is None), field
+        assert a is None or (a.is_cuda and torch.equal(a, b)), field
+    s = ck.encrypt("Hi", 1)
+    out = loaded.to_upper(s)
+    assert torch.equal(out.blocks.ct, srv.to_upper(s).blocks.ct)
+    assert ck.decrypt(out) == "HI"
+    hit = ck.get_server_key(with_ntt2, path)
+    assert torch.equal(hit.backend.sc.keys.ksk_limbs,
+                       srv.backend.sc.keys.ksk_limbs)

@@ -40,6 +40,8 @@ MODULES = [
     "fhestring_tpu_torch.ciphertext",
     "fhestring_tpu_torch.client",
     "fhestring_tpu_torch.server",
+    "fhestring_tpu_torch.serialize",
+    "fhestring_tpu_torch.service",
     "fhestring_tpu_torch.utils",
     "fhestring_tpu_torch.cli",
     "fhestring_tpu_torch.tools.stepwise_sweep",
@@ -47,6 +49,7 @@ MODULES = [
     "fhestring_tpu_torch.tools.rotation_sweep",
     "fhestring_tpu_torch.tools.step_breakdown",
     "fhestring_tpu_torch.tools.profile_requests",
+    "fhestring_tpu_torch.tools.route32_choice",
 ]
 
 _PROBE = """
@@ -131,11 +134,11 @@ def test_client_key_defaults_to_param_prod(method):
     assert dataclasses.asdict(default) == dataclasses.asdict(jax_default)
 
 
-def test_get_server_key_takes_the_jax_packages_positional_parameters():
+def test_get_server_key_takes_the_jax_packages_positional_parameters(
+        tmp_path):
     """``get_server_key(False)`` means "no NTT key" in both packages: the
     positional parameters agree in name, order and default; the port's
-    ``device`` is keyword-only, and ``cache_path`` raises until the port
-    has ``serialize.py``."""
+    ``device`` is keyword-only, and ``cache_path`` is the second."""
     from fhestring_tpu.client import ClientKey as JaxClientKey
     from fhestring_tpu_torch import PARAM_TEST32_ZERO_NOISE
     from fhestring_tpu_torch.client import ClientKey
@@ -150,13 +153,46 @@ def test_get_server_key_takes_the_jax_packages_positional_parameters():
         ("cache_path", None)]
     own = inspect.signature(ClientKey.get_server_key).parameters
     assert own["device"].kind is inspect.Parameter.KEYWORD_ONLY
-    ck = ClientKey(PARAM_TEST32_ZERO_NOISE, seed=1)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        ck.get_server_key(None, "keys.npz")
+    ck = ClientKey(PARAM_TEST32_ZERO_NOISE, seed=1, device="cpu")
+    path = str(tmp_path / "keys.npz")
+    ck.get_server_key(None, path)
+    assert os.path.exists(path)
     with pytest.raises(TypeError):
         ck.get_server_key(None, None, "cpu")
     assert ck.get_server_key(True, device="cpu").backend.sc.keys \
         .bsk_ntt32 is not None
+
+
+@pytest.mark.parametrize("method", ["__init__", "from_params"])
+def test_client_key_defaults_to_the_card(method, monkeypatch):
+    """ClientKey(P) and ClientKey.from_params(P) with no device mean the
+    card: where there is none they raise, naming device="cpu", and never
+    fall back to the CPU."""
+    import torch
+
+    from fhestring_tpu_torch import PARAM_TEST32_ZERO_NOISE
+    from fhestring_tpu_torch.client import ClientKey
+
+    default = inspect.signature(getattr(ClientKey, method)).parameters[
+        "device"].default
+    assert default is None
+    make = (ClientKey if method == "__init__" else ClientKey.from_params)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        make(PARAM_TEST32_ZERO_NOISE)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    ck = make(PARAM_TEST32_ZERO_NOISE)     # keygen is on the host
+    assert ck.device == torch.device("cuda")
+
+
+def test_cpu_client_packs_on_the_cpu():
+    from fhestring_tpu_torch import PARAM_TEST32_ZERO_NOISE
+    from fhestring_tpu_torch.client import ClientKey
+
+    ck = ClientKey(PARAM_TEST32_ZERO_NOISE, seed=1, device="cpu")
+    dk = ck.get_server_key().backend.sc.keys
+    assert dk.device.type == "cpu" and dk.bsk_ntt32.device.type == "cpu"
+    assert ck.encrypt("a").blocks.ct.device.type == "cpu"
 
 
 @pytest.mark.parametrize("name", ["abs_difference", "trim_vector",

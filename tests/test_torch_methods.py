@@ -20,7 +20,7 @@ P = PARAM_TEST32_ZERO_NOISE
 
 @pytest.fixture(scope="module")
 def client():
-    ck = ClientKey(P, seed=9)
+    ck = ClientKey(P, seed=9, device="cpu")
     return ck, ck.get_server_key()
 
 

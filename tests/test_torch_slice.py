@@ -105,7 +105,7 @@ def _run_jax(both, family, method):
 
 def test_same_seed_same_keys_and_ciphertexts():
     jck = JaxClientKey(JAX_P, seed=4)
-    ck = ClientKey(P, seed=4)
+    ck = ClientKey(P, seed=4, device="cpu")
     np.testing.assert_array_equal(ck.secret.lwe_sk, jck.secret.lwe_sk)
     np.testing.assert_array_equal(ck.secret.glwe_sk, jck.secret.glwe_sk)
     np.testing.assert_array_equal(ck._server_raw.bsk, jck._server_raw.bsk)
