@@ -98,8 +98,10 @@ Keys saved and loaded, the TCP service, and the two newer routes of
     K3 per gadget level): K3 at that route's shapes against its plain
     version, then the six requests, TURBO_COUNTS, 3n launches of K3 per
     PBS batch and none of K1 or K5, with their share of time in the step
-    graphs; and ``pbs_batch(use_ntt=True)`` at B=8 and 256 on the
-    PARAM_PROD key, bit-identical to K2's exact mode, with both times.
+    graphs; and ``pbs_batch(use_ntt=True)`` on a key packed
+    ``with_ntt=True`` only, at B=8 and 256 at PARAM_PROD and B=8 at turbo:
+    one launch of K2 (K1) a batch, bit-identical to K2's (K1's) exact mode
+    on the key packed ``with_ntt2=True``, with both times.
 
 Phases 19-21 print the card's name and power limit on their lines.
 
@@ -1038,30 +1040,45 @@ def limb_route32_kernels(dkeys, phase, batch=8):
           f"rows, fresh and accumulating, bit-exact (max |diff| {worst})")
 
 
-def use_ntt_route(dkeys, client, phase, batches=(8, 256)):
-    """pbs_batch(use_ntt=True) against pbs_batch through K2 in its exact
-    mode, bit for bit, with both times."""
-    import dataclasses
-
+def use_ntt_route(client, phase, batches=(8, 256)):
+    """pbs_batch(use_ntt=True) on a key packed ``with_ntt=True`` only
+    against pbs_batch through the family's whole-rotation kernel in its
+    exact mode on the NTT key packed ``with_ntt2=True``, bit for bit, with
+    both times; the use_ntt run must launch that kernel once a batch."""
     import torch
 
     from fhestring_tpu_torch.crypto import keys, pbs
+    from fhestring_tpu_torch.crypto.kernels import blind_rotate32 as br
+    from fhestring_tpu_torch.crypto.kernels import blind_rotate64 as br64
 
-    ntt_keys = dataclasses.replace(dkeys, bsk_ntt=dkeys.bsk_ntt64)
-    bank = keys.pack_luts([TABLE], dkeys.params, client.device)
+    p, dev = client.params, client.device
+    kernel = br64.blind_rotate64 if p.torus_bits == 64 else br.blind_rotate32
+    ntt_keys = keys.pack_server_keys(client._server_raw, dev, with_ntt2=False,
+                                     with_ntt=True)
+    fused_keys = keys.pack_server_keys(client._server_raw, dev)
+    if ntt_keys.bsk_ntt is None or fused_keys.bsk_ntt is not None:
+        fail("pack_server_keys(with_ntt=) packed the wrong NTT keys")
+    bank = keys.pack_luts([TABLE], p, dev)
     line = []
     for b in batches:
         msgs, cts = encrypt_msgs(client, b, b)
-        idx = torch.zeros(b, dtype=torch.int64, device=client.device)
+        idx = torch.zeros(b, dtype=torch.int64, device=dev)
+        kernel.launches = 0
         ms, got = cuda_ms(lambda: pbs.pbs_batch(cts, idx, bank, ntt_keys,
                                                 use_ntt=True))
-        k2_ms, want = cuda_ms(lambda: pbs.pbs_batch(cts, idx, bank, dkeys))
+        if kernel.launches != 1:
+            fail(f"pbs_batch(use_ntt=True) at B={b} launched "
+                 f"{kernel.__name__} {kernel.launches} times, not once")
+        fused_ms, want = cuda_ms(lambda: pbs.pbs_batch(cts, idx, bank,
+                                                       fused_keys))
         if not torch.equal(got, want):
-            fail(f"pbs_batch(use_ntt=True) at B={b} differs from K2 exact")
-        line.append(f"B={b} {ms:.1f} ms ({b / ms * 1e3:.1f} PBS/s), K2 "
-                    f"exact {k2_ms:.2f} ms")
-    print(f"phase {phase} use_ntt route ({dkeys.params.name}): bit-identical "
-          f"to K2's exact mode; " + "; ".join(line) + f"; {CARD}")
+            fail(f"pbs_batch(use_ntt=True) at B={b} differs from "
+                 f"{kernel.__name__} exact")
+        line.append(f"B={b} {ms:.2f} ms ({b / ms * 1e3:.1f} PBS/s), "
+                    f"with_ntt2 key {fused_ms:.2f} ms")
+    print(f"phase {phase} use_ntt route ({p.name}): one {kernel.__name__} "
+          f"launch a batch on the with_ntt key, bit-identical to its exact "
+          f"mode on the with_ntt2 key; " + "; ".join(line) + f"; {CARD}")
 
 
 def main() -> int:
@@ -1227,7 +1244,8 @@ def main() -> int:
                                       (rd.rotate_diff_decompose, 0),
                                       (br.blind_rotate32, 0)], TURBO_COUNTS,
                  21, spans)
-    use_ntt_route(server.backend.sc.keys, client, 21)
+    use_ntt_route(client, 21)
+    use_ntt_route(turbo, 21, batches=(8,))
     del turbo, client, server, server_nk32
     pbs._STEP_GRAPHS.clear()
     torch.cuda.empty_cache()

@@ -28,9 +28,10 @@ external product per LWE step, as the JAX package's do:
 At 32 bits (gadget 2^8 x 3) use_pallas makes the three levels' digits in
 torch ops and runs K3 once per level, against that level's rows of
 ``bsk_limbs``: the route of a 32-bit key packed without its NTT-domain key,
-which the JAX package serves by an XLA einsum.  use_ntt runs the CRT-NTT
-product step by step in torch ops, either family, as the JAX package runs
-it in XLA.  Every step-wise route is exact and gives the bits of the
+which the JAX package serves by an XLA einsum.  use_ntt (the CRT-NTT
+product, which the JAX package runs step by step in XLA) runs the family's
+whole-rotation kernel in exact mode against ``bsk_ntt``: the same
+arithmetic.  Every step-wise route is exact and gives the bits of the
 whole-rotation kernel's exact mode.  K3 and K4 add their product into the
 accumulator themselves.  On the card the n steps of a K3 or K4 route are
 captured once per (route, batch, key) into a CUDA graph over static buffers
@@ -340,19 +341,19 @@ def _blind_rotate_stepwise(acc: torch.Tensor, amounts: torch.Tensor,
 
 def _blind_rotate_ntt(acc: torch.Tensor, amounts: torch.Tensor,
                       keys: DeviceServerKeys) -> torch.Tensor:
-    """The use_ntt route: the CRT-NTT external product step by step in
-    torch ops against ``keys.bsk_ntt``, exact, on the tensors' device.  The
-    JAX package runs this route in XLA (``step_ntt``), not in a Pallas
-    kernel; its arithmetic here is that of the whole-rotation kernels'
-    exact mode as written in torch (two primes, centered CRT, shift planes
-    recombined mod 2^64), so its bits are theirs."""
+    """The use_ntt route: the CRT-NTT external product against
+    ``keys.bsk_ntt``, exact.  The JAX package runs it step by step in XLA
+    (``step_ntt``); its arithmetic (two primes, centered CRT, shift planes
+    recombined mod 2^64) is the whole-rotation kernels' exact mode, so the
+    port runs it through the family's kernel (K1 or K2) on the use_ntt
+    key.  The wrapper runs its plain version on CPU tensors only."""
     if keys.bsk_ntt is None:
         raise ValueError("use_ntt needs bsk_ntt: "
                          "pack_server_keys(with_ntt=True)")
     if keys.params.torus_bits == 64:
-        return br64.blind_rotate64_plain(acc, amounts, keys.bsk_ntt)
-    hi = br.blind_rotate32_plain(torus.hi32(acc).contiguous(), amounts,
-                                 keys.bsk_ntt)
+        return br64.blind_rotate64(acc, amounts, keys.bsk_ntt)
+    hi = br.blind_rotate32(torus.hi32(acc).contiguous(), amounts,
+                           keys.bsk_ntt)
     return torus.from_hi32(hi)
 
 
@@ -376,8 +377,9 @@ def blind_rotate(acc: torch.Tensor, lwe_2n: torch.Tensor,
       (K1 or K2);
     - use_ntt2: the 64-bit K4 route (K5, then ``ntt_ext`` against
       ``keys.bsk_ntt64``);
-    - use_ntt: the CRT-NTT product in torch ops (``_blind_rotate_ntt``),
-      either family;
+    - use_ntt: the CRT-NTT product against ``keys.bsk_ntt``
+      (``_blind_rotate_ntt``: the family's kernel in exact mode), either
+      family;
     - use_pallas: the limb-plane route against ``keys.bsk_limbs``: K5 then
       ``ext_product`` (K3) at 64 bits; at 32 bits the digits in torch ops
       and one K3 per gadget level (the JAX package runs an XLA einsum

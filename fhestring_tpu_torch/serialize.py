@@ -197,21 +197,22 @@ def load_packed_server_key(path: str, *, device=None):
                          dtype=torch.int8, device=device)
     padded[:, :ksk.shape[1]] = ksk
     dk = K.DeviceServerKeys(params=p, ksk_limbs=padded)
-    # the port's own NTT-domain key, then what it lacks, rebuilt from the
-    # limb planes where the file's JAX names ask for it
-    if "torch_bsk_hats" in data:
-        hats = torch.from_numpy(data["torch_bsk_hats"]).to(device)
-        for field in json.loads(str(data["torch_hats_fields"])):
-            setattr(dk, field, hats)
+    # the NTT-domain fields the file asks for: the port's own list, and
+    # the ones a JAX file's optional names ask for
+    fields = (json.loads(str(data["torch_hats_fields"]))
+              if "torch_hats_fields" in data else [])
     family = "bsk_ntt32" if p.torus_bits == 32 else "bsk_ntt64"
     asked = {family: "bsk_ntt32" if p.torus_bits == 32 else "bsk_ntt2",
              "bsk_ntt": "bsk_ntt"}
-    missing = [f for f, jax_name in asked.items()
-               if jax_name in data and getattr(dk, f) is None]
-    if missing:
-        hats = K.pack_bsk_ntt(K.bsk_from_limbs(jax_limbs.to(device)),
-                              device, K.key_planes(p))
-        for field in missing:
+    fields += [f for f, jax_name in asked.items()
+               if jax_name in data and f not in fields]
+    if fields:
+        if "torch_bsk_hats" in data:
+            hats = torch.from_numpy(data["torch_bsk_hats"]).to(device)
+        else:  # rebuilt on the device from the limb planes
+            hats = K.pack_bsk_ntt(K.bsk_from_limbs(jax_limbs.to(device)),
+                                  device, K.key_planes(p))
+        for field in fields:
             setattr(dk, field, hats)
     if p.torus_bits == 64 or dk.bsk_ntt32 is None:
         rows = K.level_major(p.pbs_level, p.glwe_dimension + 1, device)

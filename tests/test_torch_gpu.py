@@ -780,17 +780,22 @@ def test_32bit_limb_route_cuda_equals_cpu(stepwise, key_material, B):
 @pytest.mark.parametrize("family", ["32", "64"])
 def test_use_ntt_cuda_equals_the_whole_rotation(cuda, key_material,
                                                 key_material64, family):
-    """pbs_batch(use_ntt=True) on the card: the bits of the whole-rotation
-    kernel's exact mode on the card and of use_ntt on CPU."""
+    """pbs_batch(use_ntt=True) on the card: one launch of the family's
+    whole-rotation kernel, the bits of its exact mode on the card and of
+    use_ntt on CPU."""
     p, (srv, dev) = ((P, key_material) if family == "32"
                      else (P64, key_material64))
-    ntt_keys = keys.pack_server_keys(srv, cuda, params=p, with_ntt=True)
+    kernel = br.blind_rotate32 if family == "32" else br64.blind_rotate64
+    ntt_keys = keys.pack_server_keys(srv, cuda, params=p, with_ntt2=False,
+                                     with_ntt=True)
     cpu = keys.pack_server_keys(srv, "cpu", params=p, with_ntt2=False,
                                 with_ntt=True)
     cts, idx = _random_cts(p, 9, 3)
+    before = kernel.launches
     got = pbs.pbs_batch(torus.from_numpy(cts, cuda), idx.to(cuda),
                         keys.pack_luts(TABLES, p, cuda), ntt_keys,
                         use_ntt=True)
+    assert kernel.launches == before + 1
     whole = pbs.pbs_batch(torus.from_numpy(cts, cuda), idx.to(cuda),
                           keys.pack_luts(TABLES, p, cuda), dev)
     want = pbs.pbs_batch(torus.from_numpy(cts), idx,

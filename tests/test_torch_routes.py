@@ -1,9 +1,10 @@
 """The two blind-rotation routes that ``pbs_batch`` gained to serve every
 key the JAX package serves, against the JAX package.
 
-- ``use_ntt=True``: the CRT-NTT external product step by step in torch
-  ops against ``bsk_ntt`` (``pack_server_keys(with_ntt=True)``), either
-  family; the JAX package's ``step_ntt`` (XLA).
+- ``use_ntt=True``: the CRT-NTT external product against ``bsk_ntt``
+  (``pack_server_keys(with_ntt=True)``), either family, through the
+  family's whole-rotation kernel in exact mode (its plain version on CPU
+  tensors); the JAX package's ``step_ntt`` (XLA).
 - The limb-plane route of a key packed ``with_ntt2=False``
   (``use_pallas=True``): at 32 bits the digits of the 3 gadget levels in
   torch ops and one K3 per level against ``bsk_limbs``, where the JAX
