@@ -23,13 +23,15 @@ it can always derive: ``bsk_limbs`` (int8 [n, R, k+1, 8, 2N], doubled,
 un-reversed, rows r*ell + lev) and ``ksk_limbs`` (int8 [kN*ks_level,
 (n+1)*P], without the port's padding to a multiple of 8 columns).  Its own
 NTT-domain key (two primes, ``crypto/ntt.py``) is not the JAX package's
-(``bsk_ntt2`` has three primes), so it writes it under names of its own
-(``torch_*``), which the JAX loader never reads: it reads only the
-``_PACKED_OPTIONAL`` names, and the port writes none of them.  On load the
-port rebuilds what its names lack from the JAX arrays: the raw bootstrap
-key from the balanced limb planes, then the NTT-domain key the file's
-optional names ask for (``bsk_ntt32`` / ``bsk_ntt2``: the whole-rotation
-key; ``bsk_ntt``: the use_ntt key).
+(``bsk_ntt2`` has three primes) and is not stored: the file lists the
+fields that hold it as ``torch_hats_fields``, a name the JAX loader never
+reads (it reads only the ``_PACKED_OPTIONAL`` names, and the port writes
+none of them).  On load the port rebuilds that key on the device from the
+limb planes (the raw bootstrap key, then its transform) for the fields the
+list names, or that a JAX file's optional names ask for (``bsk_ntt32`` /
+``bsk_ntt2``: the whole-rotation key; ``bsk_ntt``: the use_ntt key).
+Rebuilding on an H100 loads a file faster than reading a stored copy
+would: ``PERF.md``, PR 7.
 """
 
 from __future__ import annotations
@@ -133,9 +135,8 @@ def load_server_key(path: str, with_ntt2: bool | None = None, *,
 # The JAX package's optional names (its loader reads these and no others).
 _PACKED_OPTIONAL = ("bsk_ntt", "bsk_ntt2", "bsk_ntt32")
 # The DeviceServerKeys fields that hold the port's NTT-domain key: one
-# tensor, the hats of the family's byte limbs (``keys.pack_bsk_ntt``),
-# written once as "torch_bsk_hats" with the list of fields that hold it as
-# "torch_hats_fields".
+# tensor, the hats of the family's byte limbs (``keys.pack_bsk_ntt``); the
+# file lists the ones present as "torch_hats_fields".
 _HATS_FIELDS = ("bsk_ntt32", "bsk_ntt64", "bsk_ntt")
 
 
@@ -145,7 +146,7 @@ def _numpy(t: torch.Tensor) -> np.ndarray:
 
 def save_packed_server_key(path: str, server_key) -> None:
     """Persist the DEVICE-format evaluation keys: the JAX layout of the limb
-    planes, and the port's NTT-domain keys under its own names (module
+    planes, and the list of the port's NTT-domain fields to rebuild (module
     docstring).  Uncompressed on purpose: load speed is the point."""
     from .crypto import keys as K
 
@@ -171,8 +172,7 @@ def save_packed_server_key(path: str, server_key) -> None:
         hats = getattr(dk, fields[0])
         if not all(torch.equal(getattr(dk, f), hats) for f in fields[1:]):
             raise ValueError(f"the NTT-domain keys {fields} differ")
-        arrs.update(torch_bsk_hats=_numpy(hats),
-                    torch_hats_fields=json.dumps(fields))
+        arrs.update(torch_hats_fields=json.dumps(fields))
     # Write through an open handle: np.savez(path) appends ".npz" when the
     # path lacks it, which would desync the filename from the existence
     # check in client.get_server_key (silent repack on every start).
@@ -206,12 +206,9 @@ def load_packed_server_key(path: str, *, device=None):
              "bsk_ntt": "bsk_ntt"}
     fields += [f for f, jax_name in asked.items()
                if jax_name in data and f not in fields]
-    if fields:
-        if "torch_bsk_hats" in data:
-            hats = torch.from_numpy(data["torch_bsk_hats"]).to(device)
-        else:  # rebuilt on the device from the limb planes
-            hats = K.pack_bsk_ntt(K.bsk_from_limbs(jax_limbs.to(device)),
-                                  device, K.key_planes(p))
+    if fields:  # rebuilt on the device from the limb planes
+        hats = K.pack_bsk_ntt(K.bsk_from_limbs(jax_limbs.to(device)),
+                              device, K.key_planes(p))
         for field in fields:
             setattr(dk, field, hats)
     if p.torus_bits == 64 or dk.bsk_ntt32 is None:

@@ -49,7 +49,6 @@ MODULES = [
     "fhestring_tpu_torch.tools.rotation_sweep",
     "fhestring_tpu_torch.tools.step_breakdown",
     "fhestring_tpu_torch.tools.profile_requests",
-    "fhestring_tpu_torch.tools.hats_load",
 ]
 
 _PROBE = """

@@ -223,7 +223,7 @@ def test_packed_server_key_across_packages(pair, tmp_path, direction,
 
 def test_packed_key_with_use_ntt_key_round_trips(tmp_path):
     """A key packed with the use_ntt key (one tensor with the family key)
-    is written once and comes back as one tensor; the JAX package's
+    is listed, not stored, and comes back as one tensor; the JAX package's
     ``bsk_ntt`` name asks the port to rebuild it."""
     p = PARAM_TEST_ZERO_NOISE
     ck = ClientKey(p, seed=8, device="cpu")
@@ -353,11 +353,11 @@ def test_cache_without_ntt_key_is_repacked(tmp_path, monkeypatch):
     ck = ClientKey(PARAM_TEST32_ZERO_NOISE, seed=2, device="cpu")
     path = str(tmp_path / "cache.npz")
     ck.get_server_key(False, path)
-    assert "torch_bsk_hats" not in np.load(path).files
+    assert "torch_hats_fields" not in np.load(path).files
     assert ck.get_server_key(False, path).backend.sc.keys.bsk_ntt32 is None
     srv = ck.get_server_key(None, path)
     assert srv.backend.sc.keys.bsk_ntt32 is not None
-    assert "torch_bsk_hats" in np.load(path).files
+    assert str(np.load(path)["torch_hats_fields"]) == '["bsk_ntt32"]'
     _refuse_packing(monkeypatch)
     hit = ck.get_server_key(True, path)
     _same_device_keys(hit.backend.sc.keys, srv.backend.sc.keys)
