@@ -250,6 +250,25 @@ def test_packed_key_with_use_ntt_key_round_trips(tmp_path):
     assert torch.equal(dk.bsk_ntt, srv.backend.sc.keys.bsk_ntt)
 
 
+@pytest.mark.parametrize("p", FAMILIES, ids=lambda p: p.name)
+def test_packed_file_lists_the_ntt_key_and_stores_no_copy(tmp_path, p):
+    """The port's NTT-domain key is not stored: the file holds the JAX
+    arrays and the list of fields to rebuild, and the key rebuilt from the
+    limb planes is the packed one."""
+    ck = ClientKey(p, seed=9, device="cpu")
+    srv = ck.get_server_key()
+    path = str(tmp_path / "packed.npz")
+    serialize.save_packed_server_key(path, srv)
+    family = "bsk_ntt32" if p.torus_bits == 32 else "bsk_ntt64"
+    data = np.load(path)
+    assert sorted(data.files) == sorted(
+        ["version", "kind", "params", "bsk_limbs", "ksk_limbs",
+         "torch_hats_fields"])
+    assert str(data["torch_hats_fields"]) == f'["{family}"]'
+    dk = serialize.load_packed_server_key(path, device="cpu").backend.sc.keys
+    _same_device_keys(dk, srv.backend.sc.keys)
+
+
 @pytest.mark.parametrize("kind", ["fhe_string", "fhe_char"])
 @pytest.mark.parametrize("direction", ["port_to_jax", "jax_to_port"])
 def test_ciphertexts_across_packages(pair, tmp_path, direction, kind):
