@@ -103,7 +103,26 @@ Keys saved and loaded, the TCP service, and the two newer routes of
     one launch of K2 (K1) a batch, bit-identical to K2's (K1's) exact mode
     on the key packed ``with_ntt2=True``, with both times.
 
-Phases 19-21 print the card's name and power limit on their lines.
+``parallel.py`` over ``torch.distributed`` ranks on the card, and the
+noise margin (PARAM_PROD keys made again from seed 0):
+
+22. K3 on a one-column shard of the key in every body of K3_SWEEP_BODIES,
+    bit-identical to that column of the full product, timed against the
+    whole key; then over 2 gloo ranks sharing the card (NCCL refuses two
+    ranks on one card) and over 1 NCCL rank: the batch-sharded PBS at
+    B=SHARD_B at turbo and PARAM_PROD (rounded + approx), the key-sharded
+    PBS at B=KEYSHARD_B (exact: K5 + K3 on each rank's column shard of
+    the key), the polynomial-sharded forward, inverse and ext_group NTT at
+    N=2048, each bit-identical to one process (the step-wise route for
+    the key-sharded one) and to the numpy plan, with each rank's launches;
+    rank 0 packs each key and saves it with serialize, the other loads
+    it; the MiB of key a rank holds; then the dry run's four stages
+    (``fhestring_tpu_torch.dryrun``) at PARAM_PROD on S x PAT over 2 gloo
+    ranks: Contains with PROD_COUNTS, all decrypted to Python's answers;
+23. NOISE_SAMPLES PARAM_PROD bootstraps in the served mode and their 4x +
+    y packs bootstrapped again: zero decode failures, sigma and margin.
+
+Phases 19-23 print the card's name and power limit on their lines.
 
 Then one JSON line describing the five kernels, each with its time beside
 its bound: the least time the card could take, the larger of its bytes over
@@ -197,6 +216,10 @@ SWEEP_B = (1, 8, 32, 33, 99)
 K3_SWEEP_BODIES = ((1, 1024, 4), (1, 128, 32), (1, 2048, 1), (2, 512, 8),
                    (2, 1024, 2), (2, 2048, 1), (2, 256, 16))
 GRAPH_LAUNCHES = 20  # launches captured to time a kernel on the device
+SHARD_B = 256  # the batch-sharded PBS of phase 22
+KEYSHARD_B = 8  # the key-sharded PBS of phase 22 and K3's column shard
+NOISE_SAMPLES = 16384  # PARAM_PROD bootstraps of phase 23
+RANKS_TIMEOUT = 600.0  # seconds a spawn of ranks may take (phase 22)
 # Batches of the whole-rotation kernels' sweep (phases 4 and 9): either side
 # of each switch of the pick at N=2048 on an H100 (132 SMs; 66 clusters of
 # 2 and 30 of 4 run at once), and 5, the usual batch of Eq.
@@ -1081,6 +1104,306 @@ def use_ntt_route(client, phase, batches=(8, 256)):
           f"mode on the with_ntt2 key; " + "; ".join(line) + f"; {CARD}")
 
 
+def column_shard_bodies(dkeys, phase, batch=KEYSHARD_B):
+    """K3 on a one-column shard of the prod key's step 0 (the key-sharded
+    blind rotation's ``bsk_limbs[:, :, cols]``) in the picked body and
+    every body of K3_SWEEP_BODIES, fresh and accumulating: those columns
+    of the full product, bit for bit.  Returns the device times (a graph
+    of GRAPH_LAUNCHES launches, added into an accumulator as the rotation
+    does) of K3 on the shard and on the whole key, and of K5 + K3 on the
+    shard (the kernels of one key-sharded step), in ms."""
+    import torch
+
+    from fhestring_tpu_torch.crypto.kernels import cuda_build
+    from fhestring_tpu_torch.crypto.kernels import ext_product as ep
+    from fhestring_tpu_torch.crypto.kernels import rotate_decompose as rd
+    from fhestring_tpu_torch.tools import graph_ms
+
+    dev = dkeys.bsk_limbs.device
+    sms = cuda_build.sm_count(dev.index or 0)
+    N = dkeys.params.polynomial_size
+    gen = torch.Generator().manual_seed(phase)
+    acc = torch.randint(-2**63, 2**63 - 1, (batch, 2, N), dtype=torch.int64,
+                        generator=gen).to(dev)
+    a = torch.randint(0, 2 * N, (batch,), dtype=torch.int32,
+                      generator=gen).to(dev)
+    dl = rd.rotate_diff_decompose(acc, a)
+    limbs = dkeys.bsk_limbs[0]
+    full = ep.ext_product_plain(dl, limbs)
+    bodies = [None, *K3_SWEEP_BODIES]
+    for col in range(2):
+        shard = limbs[:, col:col + 1].contiguous()
+        want = full[:, col:col + 1]
+        start = acc[:, col:col + 1].contiguous()
+        for body in bodies:
+            got = ep.ext_product(dl, shard, body=body)
+            added = ep.ext_product(dl, shard, out=start.clone(),
+                                   accumulate=True, body=body)
+            if not (torch.equal(got, want)
+                    and torch.equal(added, start + want)):
+                fail(f"ext_product on column {col} of the key, body {body}, "
+                     f"differs from that column of the full product")
+    shard = limbs[:, :1].contiguous()
+    out1, out2 = torch.zeros_like(acc[:, :1]), torch.zeros_like(acc)
+    shard_ms = graph_ms(lambda: ep.ext_product(dl, shard, out=out1,
+                                               accumulate=True),
+                        GRAPH_LAUNCHES)
+    full_ms = graph_ms(lambda: ep.ext_product(dl, limbs, out=out2,
+                                              accumulate=True),
+                       GRAPH_LAUNCHES)
+    dl_out = torch.empty_like(dl)
+
+    def step():
+        rd.rotate_diff_decompose(acc, a, out=dl_out)
+        ep.ext_product(dl_out, shard, out=out1, accumulate=True)
+
+    step_ms = graph_ms(step, GRAPH_LAUNCHES)
+    print(f"phase {phase} K3 on a column shard: B={batch} N={N}, each of "
+          f"the 2 columns in the picked body "
+          f"{ep.pick_body(batch, N, sms, 1)} and the {len(K3_SWEEP_BODIES)} "
+          f"of K3_SWEEP_BODIES, fresh and accumulating, bit-identical to "
+          f"that column of the full product; device time of a launch (a "
+          f"graph of {GRAPH_LAUNCHES}): one column {shard_ms:.4f} ms, both "
+          f"{full_ms:.4f} ms; K5 + K3 on one column {step_ms:.4f} ms")
+    return shard_ms, full_ms, step_ms
+
+
+def sharded_on_the_card(client, turbo, dkeys, tkeys, phase):
+    """parallel.py on the card.  (a) the batch-sharded PBS at B=SHARD_B in
+    the served modes (PARAM_PROD rounded + approx, turbo exact), (b) the
+    key-sharded PBS at B=KEYSHARD_B (exact), (d) the polynomial-sharded
+    forward, inverse and ext_group at N=2048 mod 40961, over 2 gloo ranks
+    sharing the card and over 1 NCCL rank: each rank's outputs
+    bit-identical to this process's pbs_batch in the same mode (K5 + K3
+    for (b)) and to the numpy plan, each rank's launches one K2 (K1) for
+    its rows, and n each of K5 and K3 for (b).  Rank 0 packs each key
+    from seed 0 and saves it with serialize; the other rank loads it.
+    (c) the dry run's four stages at PARAM_PROD on S x PAT over 2 gloo
+    ranks, decrypted to Python's answers, Contains with PROD_COUNTS."""
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from fhestring_tpu_torch import PARAM_PROD, PARAM_TURBO, dryrun, parallel
+    from fhestring_tpu_torch import torus
+    from fhestring_tpu_torch.crypto import keys, ntt_plan, pbs
+
+    dev = client.device
+    n, N = PARAM_PROD.lwe_dimension, PARAM_PROD.polynomial_size
+    shard_ms, full_ms, kernels_ms = column_shard_bodies(dkeys, phase)
+    _, cts = encrypt_msgs(client, SHARD_B, phase)
+    _, tcts = encrypt_msgs(turbo, SHARD_B, phase + 1)
+    _, kcts = encrypt_msgs(client, KEYSHARD_B, phase + 2)
+    idx = torch.zeros(SHARD_B, dtype=torch.int64, device=dev)
+    bank = keys.pack_luts([TABLE], PARAM_PROD, dev)
+    tbank = keys.pack_luts([TABLE], PARAM_TURBO, dev)
+    prod = dict(rounded=True, approx=True)
+    single = {}
+    runs = {"turbo": lambda: pbs.pbs_batch(tcts, idx, tbank, tkeys),
+            "prod": lambda: pbs.pbs_batch(cts, idx, bank, dkeys, **prod),
+            "keysharded": lambda: pbs.pbs_batch(
+                kcts, idx[:KEYSHARD_B], bank, dkeys, use_pallas=True)}
+    for name, run in runs.items():
+        run()  # warm-up (captures the step graph of the K3 route)
+        single[name] = cuda_ms(run)
+    rng = np.random.default_rng(phase)
+    prime = 40961
+    plan = ntt_plan.make_neg_plan(prime, N)
+    x = rng.integers(-127, 128, size=(8, N)).astype(np.int32)
+    ahat = rng.integers(-(prime // 2), prime // 2 + 1, size=(8, N)).astype(
+        np.int32)
+    digits = rng.integers(-127, 128, size=(4, 2, N)).astype(np.int32)
+    khat = np.stack([ntt_plan.neg_fwd(k, plan) for k in rng.integers(
+        -127, 128, size=(4, N))])
+    khat = np.broadcast_to(khat[:, None], (4, 2, N)).astype(np.int32)
+    acc = sum(ntt_plan._center(ntt_plan.neg_fwd(digits[i], plan) * khat[i],
+                               prime) for i in range(4))
+    poly_want = {"fwd": ntt_plan.neg_fwd(x, plan),
+                 "inv": ntt_plan.neg_inv(ahat, plan),
+                 "ext": ntt_plan.neg_inv(ntt_plan._center(acc, prime), plan)}
+
+    def pbs_call(name, ct, source, **extra):
+        return (name, dict(ct=torus.to_numpy(ct),
+                           lut_idx=np.zeros(len(ct), np.int64), keys=source,
+                           tables=[TABLE], **extra))
+
+    poly = dict(n_poly=N, prime=prime)
+    calls = {"turbo": pbs_call("pbs_batch_sharded", tcts, "turbo"),
+             "prod": pbs_call("pbs_batch_sharded", cts, "prod", **prod),
+             "fwd": ("ntt_fwd_poly_sharded", dict(x=x, **poly)),
+             "inv": ("ntt_inv_poly_sharded", dict(ahat=ahat, **poly)),
+             "ext": ("ext_group_poly_sharded",
+                     dict(digits=digits, khat_prime=khat, **poly)),
+             "keysharded": pbs_call("pbs_batch_keysharded", kcts, "prod")}
+    launches = {"turbo": {"blind_rotate32": 1},
+                "prod": {"blind_rotate64": 1},
+                "keysharded": {"rotate_decompose": n, "ext_product": n}}
+    workdir = os.path.join(ROOT, "fhestring_tpu_torch", "build", "smoke22")
+    os.makedirs(workdir, exist_ok=True)
+    try:
+        sources = {name: dryrun.KeySource(P, 0, os.path.join(
+            workdir, f"{name}.npz")) for name, P in (("prod", PARAM_PROD),
+                                                     ("turbo", PARAM_TURBO))}
+        for world, backend in ((2, "gloo"), (1, "nccl")):
+            t0 = time.perf_counter()
+            recs = parallel.run_ranks(world, dryrun.sharded_calls, sources,
+                                      list(calls.values()), backend=backend,
+                                      device="cuda", timeout=RANKS_TIMEOUT)
+            wall = time.perf_counter() - t0
+            for rank, rec in enumerate(recs):
+                got = dict(zip(calls, rec))
+                for name in ("turbo", "prod", "keysharded"):
+                    want = torus.to_numpy(single[name][1])
+                    if not np.array_equal(got[name]["out"], want):
+                        fail(f"{name} sharded over {world} {backend} ranks "
+                             f"differs from one process (rank {rank})")
+                    every = dict.fromkeys(got[name]["launches"], 0)
+                    every.update(launches[name])
+                    if got[name]["launches"] != every:
+                        fail(f"{name} on rank {rank}: launches "
+                             f"{got[name]['launches']}, expected {every}")
+                for name, want in poly_want.items():
+                    if not np.array_equal(got[name]["out"], want):
+                        fail(f"ntt {name} sharded over {world} {backend} "
+                             f"ranks differs from the numpy plan")
+            got = dict(zip(calls, recs[0]))
+            held = got["keysharded"]["bytes"]
+            whole = got["keysharded"]["unsharded_bytes"]
+            step_ms = got["keysharded"]["seconds"] * 1e3 / n
+            print(f"phase {phase} sharded ({world} {backend} rank"
+                  f"{'s' if world > 1 else ''} on the card, {wall:.1f} s "
+                  f"with start-up, staged through the host by the port: "
+                  f"none): every rank bit-identical to one process; (a) "
+                  f"B={SHARD_B} turbo {got['turbo']['seconds'] * 1e3:.1f} ms "
+                  f"(one process {single['turbo'][0]:.1f} ms), PARAM_PROD "
+                  f"rounded + approx {got['prod']['seconds'] * 1e3:.1f} ms "
+                  f"({single['prod'][0]:.1f} ms), one K1 / K2 launch a rank; "
+                  f"(b) key-sharded B={KEYSHARD_B} exact "
+                  f"{got['keysharded']['seconds'] * 1e3:.1f} ms (one process "
+                  f"K5 + K3 graph {single['keysharded'][0]:.1f} ms), {n} K5 "
+                  f"and {n} K3 launches a rank; a rank holds KSK "
+                  f"{held['ksk'] / 2**20:.1f} of {whole['ksk'] / 2**20:.1f} "
+                  f"MiB and BSK limbs {held['bsk'] / 2**20:.1f} of "
+                  f"{whole['bsk'] / 2**20:.1f} MiB; a step {step_ms:.3f} ms "
+                  f"= kernels {kernels_ms:.4f} ms (K5 + K3 on a column, "
+                  f"device) + all_gather and host {step_ms - kernels_ms:.3f}"
+                  f" ms; (d) N={N} mod {prime}: fwd "
+                  f"{got['fwd']['seconds'] * 1e3:.1f} ms, inv "
+                  f"{got['inv']['seconds'] * 1e3:.1f} ms, ext_group (4 rows) "
+                  f"{got['ext']['seconds'] * 1e3:.1f} ms, equal to the numpy "
+                  f"plan; {CARD}")
+        t0 = time.perf_counter()
+        recs = parallel.run_ranks(
+            2, dryrun.dryrun_multichip, PARAM_PROD, S, PAT,
+            os.path.join(workdir, "dryrun.npz"), False, backend="gloo",
+            device="cuda", timeout=RANKS_TIMEOUT)
+        wall = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(workdir)
+    stages = recs[0]
+    if stages["contains"]["pbs"] != PROD_COUNTS["Contains"]:
+        fail(f"lane-sharded Contains counts {stages['contains']['pbs']}, "
+             f"table {PROD_COUNTS['Contains']}")
+    for rank in recs:
+        for stage, rec in rank.items():
+            if rec and rec["pbs"] != stages[stage]["pbs"]:
+                fail(f"dry run {stage}: the ranks counted differently")
+    print(f"phase {phase} dry run (2 gloo ranks, PARAM_PROD, {wall:.1f} s "
+          f"with start-up): lane-sharded Contains({S!r}, {PAT!r}) = "
+          f"{stages['contains']['result']} in "
+          f"{stages['contains']['seconds']:.2f} s, pbs "
+          f"{stages['contains']['pbs']}; query-sharded split + trim of "
+          f"{stages['split_trim']['queries']} on \" \" in "
+          f"{stages['split_trim']['seconds']:.2f} s, pbs "
+          f"{stages['split_trim']['pbs']} a rank; key-sharded PBS B=16 "
+          f"bit-identical to pbs_batch in "
+          f"{stages['keysharded']['seconds']:.2f} s; lane-sharded "
+          f"split gives {stages['lane_split']['words']} in "
+          f"{stages['lane_split']['seconds']:.2f} s, pbs "
+          f"{stages['lane_split']['pbs']} (Split's row of PROD_COUNTS "
+          f"{PROD_COUNTS['Split']}); all decrypt to Python's answers; "
+          f"{CARD}")
+    return shard_ms, full_ms
+
+
+def noise_on_the_card(client, dkeys, phase):
+    """NOISE_SAMPLES PARAM_PROD bootstraps in the served mode (K2 rounded
+    + approx) through the identity-on-message LUT, and the worst designed
+    pack (4x + y of two outputs) bootstrapped again: zero decode failures;
+    the fresh outputs' noise sigma and half a slot over it (above 7.04, a
+    2^-40 two-sided tail), and the pack's.  The counterpart on the card of
+    benchmarks/calibration_prod_r5.log."""
+    import numpy as np
+    import torch
+
+    from fhestring_tpu_torch import torus
+    from fhestring_tpu_torch.crypto import keys, pbs
+    from fhestring_tpu_torch.numpy_ref import core as ref
+
+    p, dev = client.params, client.device
+    table = list(range(4)) * 4
+    bank = keys.pack_luts([table], p, dev)
+    sk = client.secret.big_lwe_sk.astype(np.uint64)
+
+    def errors(cts, expected):
+        phase_ = cts[:, -1] - (cts[:, :-1] * sk).sum(axis=1, dtype=np.uint64)
+        err = (phase_ - expected.astype(np.uint64) * np.uint64(p.delta))
+        err = err.view(np.int64).astype(np.float64) / 2.0 ** 64
+        return err
+
+    def decode(cts):
+        phase_ = cts[:, -1] - (cts[:, :-1] * sk).sum(axis=1, dtype=np.uint64)
+        return (((phase_ + np.uint64(p.delta // 2)) // np.uint64(p.delta))
+                % np.uint64(p.full_space)).astype(np.int64)
+
+    rng = np.random.default_rng(17)
+    B = 2048
+    failures, fresh, packs = 0, [], []
+    t0 = time.perf_counter()
+    device_s = 0.0
+    for _ in range(NOISE_SAMPLES // B):
+        msgs = rng.integers(0, 4, size=B)
+        cts = np.stack([ref.shortint_encrypt(client.secret, int(m),
+                                             client._rng) for m in msgs])
+        idx = torch.zeros(B, dtype=torch.int64, device=dev)
+        ms, out = cuda_ms(lambda: pbs.pbs_batch(
+            torus.from_numpy(cts, dev), idx, bank, dkeys, rounded=True,
+            approx=True))
+        device_s += ms / 1e3
+        host = torus.to_numpy(out)
+        exp = np.array([table[m] for m in msgs])
+        failures += int((decode(host) != exp).sum())
+        fresh.append(errors(host, exp))
+        half = B // 2
+        packed = np.uint64(4) * host[:half] + host[half:]
+        pexp = (4 * exp[:half] + exp[half:]) % 16
+        packs.append(errors(packed, pexp))
+        ms, out2 = cuda_ms(lambda: pbs.pbs_batch(
+            torus.from_numpy(packed, dev), idx[:half], bank, dkeys,
+            rounded=True, approx=True))
+        device_s += ms / 1e3
+        exp2 = np.array([table[v] for v in pexp])
+        failures += int((decode(torus.to_numpy(out2)) != exp2).sum())
+    sigma = float(np.std(np.concatenate(fresh)))
+    sigma_pack = float(np.std(np.concatenate(packs)))
+    half_slot = 1.0 / (2 * p.full_space)
+    if failures:
+        fail(f"{failures} decode failures in {NOISE_SAMPLES} bootstraps and "
+             f"{NOISE_SAMPLES // 2} packs")
+    if not sigma > 0 or half_slot / sigma <= 7.04:
+        fail(f"noise sigma {sigma} against half a slot {half_slot}")
+    print(f"phase {phase} noise: {NOISE_SAMPLES} PARAM_PROD bootstraps "
+          f"(rounded + approx, B={B}) and {NOISE_SAMPLES // 2} of their 4x + "
+          f"y packs bootstrapped again: 0 decode failures; sigma fresh "
+          f"{sigma:.6e} (2^{np.log2(sigma):.3f}), half a slot / sigma "
+          f"{half_slot / sigma:.1f}; sigma of the pack {sigma_pack:.6e}, "
+          f"half a slot / sigma {half_slot / sigma_pack:.1f} (pack / fresh "
+          f"{(sigma_pack / sigma) ** 2:.2f} units); "
+          f"{time.perf_counter() - t0:.1f} s, {device_s:.2f} s of it in "
+          f"pbs_batch; {CARD}")
+
+
 def main() -> int:
     import torch
 
@@ -1246,7 +1569,17 @@ def main() -> int:
                  21, spans)
     use_ntt_route(client, 21)
     use_ntt_route(turbo, 21, batches=(8,))
-    del turbo, client, server, server_nk32
+    del server_nk32
+    pbs._STEP_GRAPHS.clear()
+    torch.cuda.empty_cache()
+
+    # -- parallel.py: sharded over ranks on the card; the noise margin ----
+    tserver = turbo.get_server_key()
+    sharded_on_the_card(client, turbo, server.backend.sc.keys,
+                        tserver.backend.sc.keys, 22)
+    del tserver
+    noise_on_the_card(client, server.backend.sc.keys, 23)
+    del turbo, client, server
     pbs._STEP_GRAPHS.clear()
     torch.cuda.empty_cache()
 

@@ -8,8 +8,9 @@ package's.  This package imports torch and numpy, never jax.
 
 Ported so far: the 64-bit parameter family (``PARAM_PROD``, the default)
 and the 32-bit-torus (turbo) family end to end, the CLI, key and
-ciphertext checkpoints (``serialize``) and the TCP service (``service``);
-see ROADMAP.md for what remains.  The device defaults to the card
+ciphertext checkpoints (``serialize``), the TCP service (``service``) and
+sharding over ``torch.distributed`` ranks (``parallel``, ``dryrun``); see
+ROADMAP.md for what remains.  The device defaults to the card
 (``client.ClientKey(device=None)``).
 """
 

@@ -3,7 +3,9 @@ hand-written CUDA kernel and its plain PyTorch version.
 
 Replaces ``fhestring_tpu/crypto/kernels/ext_product.py: ext_product_u64``
 (a Pallas TPU kernel: Hankel-band int8 matmuls on the MXU).  What it
-computes, for each batch item b and output row col:
+computes, for each batch item b and output row col of the key it is given
+(all k+1, or a shard of consecutive columns: the key-sharded blind rotation
+of ``parallel.py``, which holds ``bsk_limbs[:, :, cols]``):
 
     ext[b, col] = sum_r d[b, r] (x) K[r, col]   (negacyclic in
                                                  Z_{2^64}[X]/(X^N + 1))
@@ -59,8 +61,8 @@ SHARED_MEMORY = 232448  # bytes a block may use on an H100
 _VP = ctypes.c_void_p
 _INT = ctypes.c_int
 _FUNCTIONS = {
-    "fhe_ext_product": ([_VP, _VP, _VP, _INT, _INT, _INT, _INT, _INT, _VP],
-                        _INT),
+    "fhe_ext_product": ([_VP, _VP, _VP, _INT, _INT, _INT, _INT, _INT, _INT,
+                         _VP], _INT),
     "fhe_ext_product_init": ([], _INT),
 }
 
@@ -83,20 +85,21 @@ def prepare(device: torch.device) -> None:
     _library(device.index)
 
 
-def pick_body(batch: int, n: int, sms: int) -> tuple[int, int, int]:
+def pick_body(batch: int, n: int, sms: int,
+              cols: int = br64.GLWE_ROWS) -> tuple[int, int, int]:
     """(groups, chunk, split) of the launch, from a sweep on an H100 at
     N = 2048 (``tools/stepwise_sweep``).  groups: 8-item groups per block,
     2 where that pads the batch no further than 1 does, or at large
     batches.  chunk: digit indices staged at once, 1024, or 512 where the
     blocks are so few that only the finer split gives the card 2 a SM.
     split: blocks that share the 2N / chunk chunks of one output tile and
-    add their partial sums, doubled until the grid (N/128 x 2 ceil(B / 8
-    groups) x split) has 8 blocks a SM.  The result does not depend on the
-    body."""
+    add their partial sums, doubled until the grid (N/128 x cols ceil(B / 8
+    groups) x split) has 8 blocks a SM; cols: the key's output rows.  The
+    result does not depend on the body."""
     pair = 2 * ITEMS
     groups = 2 if batch >= 128 or -(-batch // pair) * 2 == -(-batch // ITEMS) \
         else 1
-    blocks = (n // M_TILE) * br64.GLWE_ROWS * -(-batch // (ITEMS * groups))
+    blocks = (n // M_TILE) * cols * -(-batch // (ITEMS * groups))
     chunk = min(n, 1024)
     if chunk > 512 and blocks * (2 * n // chunk) < 2 * sms:
         chunk = 512
@@ -130,9 +133,10 @@ def _check(dl: torch.Tensor, key: torch.Tensor) -> None:
         raise TypeError("dl and key must be int8")
     if dl.dim() != 3 or key.dim() != 4:
         raise ValueError("expected dl [3, B, (k+1)*N] and key "
-                         "[k+1, k+1, 8, 2N]")
+                         "[k+1, cols, 8, 2N]")
     kp1, N = br64.GLWE_ROWS, key.shape[-1] // 2
-    if tuple(key.shape) != (kp1, kp1, keys.KEY_PLANES64, 2 * N):
+    if (key.shape[0] != kp1 or not 1 <= key.shape[1] <= kp1
+            or tuple(key.shape[2:]) != (keys.KEY_PLANES64, 2 * N)):
         raise ValueError(f"unsupported key shape {tuple(key.shape)}")
     if N & (N - 1) or not MIN_N <= N <= 2048:
         raise ValueError(f"unsupported polynomial size {N}")
@@ -168,12 +172,12 @@ def ext_product_plain(dl: torch.Tensor, key: torch.Tensor) -> torch.Tensor:
     _check(dl, key)
     key = keys.doubled_limbs(key)[..., :key.shape[-1] // 2]  # limbs of K
     L, B, _ = dl.shape
-    kp1, _, planes, N = key.shape
+    kp1, cols, planes, N = key.shape
     d = dl.view(L, B, kp1, N)
-    out = torch.zeros((B, kp1, N), dtype=torch.int64, device=dl.device)
+    out = torch.zeros((B, cols, N), dtype=torch.int64, device=dl.device)
     for r in range(kp1):
         lhs = d[:, :, r].reshape(L * B, N)
-        for col in range(kp1):
+        for col in range(cols):
             w = _int8_matmul(lhs, _limb_matrices(key[r, col]))
             w = w.view(L, B, planes, N).to(torch.int64)
             for la in range(L):
@@ -188,9 +192,10 @@ def ext_product(dl: torch.Tensor, key: torch.Tensor,
     """One step's external product.
 
     dl: int8 [3, B, (k+1)*N] digit limbs (``rotate_diff_decompose``);
-    key: int8 [k+1, k+1, 8, 2N] reversed limb planes of the step's doubled
-    key polys (``DeviceServerKeys.bsk_limbs[j]``).  Returns int64 [B, k+1, N]: the
-    external product mod 2^64 (u64 bits).  out: where to put it (no
+    key: int8 [k+1, cols, 8, 2N] reversed limb planes of the step's doubled
+    key polys (``DeviceServerKeys.bsk_limbs[j]``, cols = k+1, or a column
+    shard of it).  Returns int64 [B, cols, N]: the external product's output
+    rows of that key mod 2^64 (u64 bits).  out: where to put it (no
     allocation then); with accumulate=True the product is added to out (mod
     2^64) instead, the step ``acc += ext`` in one launch.  body: the
     kernel's (groups, chunk, split), default ``pick_body``; the result does
@@ -201,9 +206,9 @@ def ext_product(dl: torch.Tensor, key: torch.Tensor,
     """
     _check(dl, key)
     _, B, _ = dl.shape
-    kp1, N = key.shape[1], key.shape[-1] // 2
+    cols, N = key.shape[1], key.shape[-1] // 2
     if out is not None:
-        cuda_build.check_out(out, (B, kp1, N), torch.int64, dl.device)
+        cuda_build.check_out(out, (B, cols, N), torch.int64, dl.device)
     elif accumulate:
         raise ValueError("accumulate=True needs out")
     if body is not None:
@@ -217,15 +222,15 @@ def ext_product(dl: torch.Tensor, key: torch.Tensor,
         raise ValueError(f"no external-product kernel for {dl.device}")
     lib = _library(dl.device.index)
     if body is None:
-        body = pick_body(B, N, cuda_build.sm_count(dl.device.index))
+        body = pick_body(B, N, cuda_build.sm_count(dl.device.index), cols)
     # the kernel adds its blocks' partial sums into out
     if out is None:
-        out = torch.zeros((B, kp1, N), dtype=torch.int64, device=dl.device)
+        out = torch.zeros((B, cols, N), dtype=torch.int64, device=dl.device)
     elif not accumulate:
         out.zero_()
     with torch.cuda.device(dl.device):
         err = lib.fhe_ext_product(
-            dl.data_ptr(), key.data_ptr(), out.data_ptr(), B, N, *body,
+            dl.data_ptr(), key.data_ptr(), out.data_ptr(), B, N, cols, *body,
             torch.cuda.current_stream().cuda_stream)
     cuda_build.check(lib, err, "ext_product")
     ext_product.launches += 1

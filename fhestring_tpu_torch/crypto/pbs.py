@@ -105,17 +105,31 @@ def _int8_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return torch._int_mm(a, b)[:rows]
 
 
+def keyswitch_digits(ct: torch.Tensor, p: CryptoParams) -> torch.Tensor:
+    """The keyswitch's left operand: int8 [B, K] digits of the mask, K =
+    kN*ks_level in the order of the key's rows (``keys.pack_ksk``: (i, lev)
+    row-major)."""
+    kn = p.big_lwe_dimension
+    digits = decompose(ct[:, :kn], p.ks_base_log, p.ks_level)  # [lev, B, kN]
+    return digits.permute(1, 2, 0).reshape(ct.shape[0], kn * p.ks_level).to(
+        torch.int8)
+
+
 def keyswitch(ct: torch.Tensor, keys: DeviceServerKeys) -> torch.Tensor:
     """ct: int64 [B, kN+1] -> int64 [B, n+1].
 
     Exact: ks digits |d| <= 4, key limbs |l| <= 128, K = kN*ks_level terms,
     so every int32 sum is below 4 * 128 * K (2^22.3 at turbo)."""
-    p = keys.params
+    planes = _int8_matmul(keyswitch_digits(ct, keys.params), keys.ksk_limbs)
+    return keyswitch_finish(planes, ct, keys.params)
+
+
+def keyswitch_finish(planes: torch.Tensor, ct: torch.Tensor,
+                     p: CryptoParams) -> torch.Tensor:
+    """The keyswitch's result from its int32 product planes [B, ks_cols]
+    (``keyswitch_digits`` @ ``ksk_limbs``): the planes recombined mod 2^64,
+    negated, plus the body of ct."""
     kn, n1 = p.big_lwe_dimension, p.lwe_dimension + 1
-    digits = decompose(ct[:, :kn], p.ks_base_log, p.ks_level)  # [lev, B, kN]
-    # K-order matches keys.pack_ksk: (i, lev) row-major.
-    d = digits.permute(1, 2, 0).reshape(ct.shape[0], kn * p.ks_level)
-    planes = _int8_matmul(d.to(torch.int8), keys.ksk_limbs)
     nplanes = key_planes(p)
     planes = planes[:, :n1 * nplanes].reshape(-1, n1, nplanes)
     # sum_s plane_s * 256**s mod 2**64 (JAX recombine_planes); the 4 planes
@@ -417,6 +431,21 @@ def blind_rotate(acc: torch.Tensor, lwe_2n: torch.Tensor,
 # Full PBS
 # ---------------------------------------------------------------------------
 
+def initial_acc(lwe_2n: torch.Tensor, lut_idx: torch.Tensor,
+                lut_bank: torch.Tensor, p: CryptoParams) -> torch.Tensor:
+    """The blind rotation's starting accumulator int64 [B, k+1, N]: masks
+    zero, body = each item's test poly * X^-b (b = lwe_2n's last column),
+    so the rotation then takes the mask amounts with b = 0."""
+    N = p.polynomial_size
+    B = lwe_2n.shape[0]
+    b = lwe_2n[:, -1]
+    sel = lut_bank[lut_idx]                                     # [B, 2N]
+    idx = (torch.arange(N, device=lwe_2n.device) + b[:, None]) & (2 * N - 1)
+    body = torch.gather(sel, 1, idx)                            # [B, N]
+    return torch.cat([body.new_zeros((B, p.glwe_dimension, N)),
+                      body[:, None, :]], dim=1)
+
+
 def pbs_batch(ct: torch.Tensor, lut_idx: torch.Tensor, lut_bank: torch.Tensor,
               keys: DeviceServerKeys, rounded: bool = False,
               approx: bool = False, use_pallas: bool = False,
@@ -432,19 +461,10 @@ def pbs_batch(ct: torch.Tensor, lut_idx: torch.Tensor, lut_bank: torch.Tensor,
     """
     p = keys.params
     _check_kernel_shape(p)
-    N = p.polynomial_size
-    B = ct.shape[0]
     lwe_2n = modswitch(keyswitch(ct, keys), p)
-
-    # Body = test poly * X^-b; masks start at zero.  The test poly is
-    # rotated here, so the blind rotation gets the mask amounts with b = 0.
-    b = lwe_2n[:, -1]
-    sel = lut_bank[lut_idx]                                     # [B, 2N]
-    idx = (torch.arange(N, device=ct.device) + b[:, None]) & (2 * N - 1)
-    body = torch.gather(sel, 1, idx)                            # [B, N]
-    acc = torch.cat([body.new_zeros((B, p.glwe_dimension, N)),
-                     body[:, None, :]], dim=1)
-    lwe_nob = torch.cat([lwe_2n[:, :-1], lwe_2n.new_zeros((B, 1))], dim=1)
+    acc = initial_acc(lwe_2n, lut_idx, lut_bank, p)
+    lwe_nob = torch.cat([lwe_2n[:, :-1], lwe_2n.new_zeros((ct.shape[0], 1))],
+                        dim=1)
     return sample_extract(
         blind_rotate(acc, lwe_nob, keys, rounded=rounded, approx=approx,
                      use_pallas=use_pallas, use_ntt2=use_ntt2,

@@ -39,8 +39,9 @@
 // Design.  A block of 4 warps owns kMt = 128 coefficients t (two m16 tiles a
 // warp) of one output row, kGroups groups of 8 batch items (one n8 tile per
 // group and limb la) and `per_block` consecutive chunks of `chunk` digit
-// indices, staged one after another; grid N/128 x 2 * ceil(B / (8 kGroups))
-// x (2N / chunk / per_block).  The digits go to shared memory by cp.async,
+// indices, staged one after another; grid N/128 x cols * ceil(B / (8
+// kGroups)) x (2N / chunk / per_block), cols the output rows of the key it
+// is given (2, or 1 for a column shard of the key).  The digits go to shared memory by cp.async,
 // the key window through registers, where the 3 shifted copies are made.
 // Because A is Toeplitz, the 8 fragment words of a warp's two tiles are 6
 // different words and 2 of them are the next k-step's: 4 shared-memory loads
@@ -105,7 +106,10 @@ __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_all;" ::: "memory");
 }
 
-template <int kGroups>
+// kCols: the output rows of the key the kernel is given (kRows, or 1 for a
+// column shard), a template parameter so that the whole key's body is the
+// code it was before shards existed.
+template <int kGroups, int kCols>
 __global__ void __launch_bounds__(kThreads)
 ext_product_kernel(const int8_t* __restrict__ dl,
                    const int8_t* __restrict__ key,
@@ -117,8 +121,8 @@ ext_product_kernel(const int8_t* __restrict__ dl,
   uint32_t* bw = smem + kKeyPlanes * kCopies * sa;   // [3][8 kGroups][sb]
 
   const int t_lo = blockIdx.x * kMt;
-  const int col = blockIdx.y % kRows;
-  const int b0 = (blockIdx.y / kRows) * kItems * kGroups;
+  const int col = blockIdx.y % kCols;
+  const int b0 = (blockIdx.y / kCols) * kItems * kGroups;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, tig = lane & 3;
   const size_t limb_stride = static_cast<size_t>(batch) * kRows * n;
@@ -158,7 +162,7 @@ ext_product_kernel(const int8_t* __restrict__ dl,
     // - kMt) mod 2N of the reversed plane the key holds, so that A[t][c] is
     // the window's byte (c - c_lo) - (t - t_lo) + kMt.  Copy k is the window
     // shifted up by k bytes.
-    const int8_t* kq = key + static_cast<size_t>(r * kRows + col) *
+    const int8_t* kq = key + static_cast<size_t>(r * kCols + col) *
                                  kKeyPlanes * 2 * n;
     const int start = (c_lo - t_lo - kMt) & (2 * n - 1);  // a multiple of 64
     const int vecs_a = (chunk + kMt) / 16;
@@ -251,7 +255,7 @@ ext_product_kernel(const int8_t* __restrict__ dl,
         for (int s = 0; s < kKeyPlanes; ++s)
           sum += static_cast<uint64_t>(static_cast<int64_t>(acc[s][m][q][i]))
                  << (8 * s);
-        atomicAdd(out + (static_cast<size_t>(b) * kRows + col) * n + t,
+        atomicAdd(out + (static_cast<size_t>(b) * kCols + col) * n + t,
                   static_cast<unsigned long long>(sum));
       }
 }
@@ -262,30 +266,31 @@ size_t smem_bytes(int groups, int chunk) {
          sizeof(uint32_t);
 }
 
-template <int kGroups>
+template <int kGroups, int kCols>
 int launch(const void* dl, const void* key, void* out, int batch, int n,
            int chunk, int split, cudaStream_t stream) {
   const int chunks = 2 * n / chunk;
   const dim3 grid(n / kMt,
-                  kRows * ((batch + kItems * kGroups - 1) / (kItems * kGroups)),
+                  kCols * ((batch + kItems * kGroups - 1) / (kItems * kGroups)),
                   split);
-  ext_product_kernel<kGroups><<<grid, kThreads, smem_bytes(kGroups, chunk),
-                               stream>>>(
-      static_cast<const int8_t*>(dl), static_cast<const int8_t*>(key),
-      static_cast<unsigned long long*>(out), batch, n, chunk, chunks / split);
+  ext_product_kernel<kGroups, kCols>
+      <<<grid, kThreads, smem_bytes(kGroups, chunk), stream>>>(
+          static_cast<const int8_t*>(dl), static_cast<const int8_t*>(key),
+          static_cast<unsigned long long*>(out), batch, n, chunk,
+          chunks / split);
   return static_cast<int>(cudaGetLastError());
 }
 
 // Let the kernel use the block's whole shared memory, and have the SM split
 // its memory in favour of shared memory, so that as many blocks are
 // resident as their shared memory allows.
-template <int kGroups>
+template <int kGroups, int kCols>
 cudaError_t allow_shared_memory(int bytes) {
   cudaError_t err = cudaFuncSetAttribute(
-      ext_product_kernel<kGroups>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      bytes);
+      ext_product_kernel<kGroups, kCols>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return err;
-  return cudaFuncSetAttribute(ext_product_kernel<kGroups>,
+  return cudaFuncSetAttribute(ext_product_kernel<kGroups, kCols>,
                               cudaFuncAttributePreferredSharedMemoryCarveout,
                               cudaSharedmemCarveoutMaxShared);
 }
@@ -301,30 +306,39 @@ extern "C" int fhe_ext_product_init() {
   if (err == cudaSuccess)
     err = cudaDeviceGetAttribute(&bytes, cudaDevAttrMaxSharedMemoryPerBlockOptin,
                                  device);
-  if (err == cudaSuccess) err = allow_shared_memory<1>(bytes);
-  if (err == cudaSuccess) err = allow_shared_memory<2>(bytes);
+  if (err == cudaSuccess) err = allow_shared_memory<1, kRows>(bytes);
+  if (err == cudaSuccess) err = allow_shared_memory<2, kRows>(bytes);
+  if (err == cudaSuccess) err = allow_shared_memory<1, 1>(bytes);
+  if (err == cudaSuccess) err = allow_shared_memory<2, 1>(bytes);
   return static_cast<int>(err);
 }
 
 // out[b][col][t] += ext[b][col][t] (mod 2^64).  dl: int8 [3, batch, 2 * n]
-// digit limbs (natural coefficient order); key: int8 [2 digit rows, 2 output
-// rows, 8, 2 * n] reversed limb planes of the step's doubled key polys; out: u64 [batch, 2, n],
-// the accumulator or a zeroed buffer.  groups: 8-item groups a block (1, 2
-// or 4); chunk: digit indices staged at once (a multiple of 128, at most
+// digit limbs (natural coefficient order); key: int8 [2 digit rows, cols
+// output rows, 8, 2 * n] reversed limb planes of the step's doubled key
+// polys: all 2 output rows, or a shard of consecutive ones (the key-sharded
+// blind rotation, fhestring_tpu_torch/parallel.py); out: u64 [batch, cols,
+// n], the accumulator or a zeroed buffer.  groups: 8-item groups a block (1
+// or 2); chunk: digit indices staged at once (a multiple of 128, at most
 // n); split: blocks that share one output tile's 2n / chunk chunks (a
 // divisor of that count).  Launches on `stream`; returns the cudaError_t of
 // the launch.
 extern "C" int fhe_ext_product(const void* dl, const void* key, void* out,
-                               int batch, int n, int groups, int chunk,
-                               int split, void* stream) {
-  if (n < 128 || n > 2048 || (n & (n - 1)) || batch < 0 || chunk < 128 ||
-      chunk > n || chunk % 128 || split < 1 || (2 * n / chunk) % split)
+                               int batch, int n, int cols, int groups,
+                               int chunk, int split, void* stream) {
+  if (n < 128 || n > 2048 || (n & (n - 1)) || batch < 0 || cols < 1 ||
+      cols > kRows || chunk < 128 || chunk > n || chunk % 128 || split < 1 ||
+      (2 * n / chunk) % split)
     return static_cast<int>(cudaErrorInvalidValue);
   if (batch == 0) return 0;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (groups) {
-    case 1: return launch<1>(dl, key, out, batch, n, chunk, split, s);
-    case 2: return launch<2>(dl, key, out, batch, n, chunk, split, s);
+  switch (groups * 8 + cols) {
+    case 8 + kRows: return launch<1, kRows>(dl, key, out, batch, n, chunk,
+                                            split, s);
+    case 16 + kRows: return launch<2, kRows>(dl, key, out, batch, n, chunk,
+                                             split, s);
+    case 8 + 1: return launch<1, 1>(dl, key, out, batch, n, chunk, split, s);
+    case 16 + 1: return launch<2, 1>(dl, key, out, batch, n, chunk, split, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

@@ -19,7 +19,7 @@ from typing import Callable
 import numpy as np
 import torch
 
-from . import metrics, torus
+from . import metrics, parallel, torus
 from .crypto.keys import DeviceServerKeys, pack_luts
 from .crypto.pbs import pbs_batch
 from .params import CryptoParams
@@ -90,6 +90,9 @@ class ShortintContext:
         self.max_noise_var: float = getattr(
             keys.params, "noise_budget", MAX_NOISE_VAR)
         self._lut_cache: dict[tuple, torch.Tensor] = {}
+        # A torch.distributed process group while the server runs
+        # lane-sharded (parallel.lane_sharded), else None.
+        self.group = None
 
     # -- constructors -------------------------------------------------------
     def trivial(self, values) -> Blocks:
@@ -156,7 +159,9 @@ class ShortintContext:
         power of two, as the JAX package pads on CPU, so counts and padded
         counts match it there.  The CUDA kernels take any batch, so on the
         card nothing is padded.  The blind-rotation route and mode are
-        ``pbs_route``'s."""
+        ``pbs_route``'s.  Under ``parallel.lane_sharded`` the batch is
+        sharded over the process group (``parallel.pbs_batch_sharded``)
+        and counted once, as one process counts it."""
         n = flat.shape[0]
         on_cpu = flat.device.type == "cpu"
         max_chunk = 4096 if on_cpu else 8192
@@ -173,8 +178,11 @@ class ShortintContext:
         if padded != n:
             flat = torch.cat([flat, flat.new_zeros((padded - n, flat.shape[1]))])
             idx = torch.cat([idx, idx.new_zeros(padded - n)])
-        return pbs_batch(flat, idx, bank, self.keys,
-                         **pbs_route(self.keys, on_cpu))[:n]
+        route = pbs_route(self.keys, on_cpu)
+        if self.group is not None:
+            return parallel.pbs_batch_sharded(flat, idx, bank, self.keys,
+                                              self.group, **route)[:n]
+        return pbs_batch(flat, idx, bank, self.keys, **route)[:n]
 
     def apply_lut(self, a: Blocks, table) -> Blocks:
         """Univariate LUT via one batched PBS. table: 16 ints in [0, 16)."""

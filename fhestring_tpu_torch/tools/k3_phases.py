@@ -77,7 +77,7 @@ def build() -> ctypes.CDLL:
                     path + ".cu"], check=True)
     lib = ctypes.CDLL(path + ".so")
     vp, i = ctypes.c_void_p, ctypes.c_int
-    lib.fhe_ext_product.argtypes = [vp, vp, vp, i, i, i, i, i, vp]
+    lib.fhe_ext_product.argtypes = [vp, vp, vp, i, i, i, i, i, i, vp]
     lib.fhe_prof.argtypes = [vp, i]
     if lib.fhe_ext_product_init():
         raise SystemExit("init failed")
@@ -100,7 +100,8 @@ def main() -> None:
         stream = torch.cuda.current_stream().cuda_stream
         for step in range(3):  # the last launch, on a cold key, is read
             err = lib.fhe_ext_product(dl.data_ptr(), limbs[step].data_ptr(),
-                                      out.data_ptr(), batch, N, *body, stream)
+                                      out.data_ptr(), batch, N, 2, *body,
+                                      stream)
             torch.cuda.synchronize()
         if err or not torch.equal(out, 0 + sum(
                 ep.ext_product(dl, limbs[s], body=body) for s in range(3))):

@@ -81,12 +81,13 @@ def _jax(dl, key):
 
 def kernel_model(dl, planes, chunk, split, rng=None):
     """The CUDA kernel's arithmetic.  dl int8 [3, B, R*N]; planes int8
-    [R, KP1, 8, 2N] (``keys.pack_bsk_limbs``).  The 2N / chunk chunks of
+    [R, cols, 8, 2N] (``keys.pack_bsk_limbs``, cols = KP1, or a column
+    shard of it).  The 2N / chunk chunks of
     digit indices (over both rows) are shared by `split` blocks; a block
     sums its chunks on 8 int32 planes, recombines them to u64 and adds
     that to the output, the blocks in the order rng shuffles them into.
-    Returns (u64 [B, KP1, N], the largest |int32 plane entry| seen)."""
-    N = planes.shape[-1] // 2
+    Returns (u64 [B, cols, N], the largest |int32 plane entry| seen)."""
+    N, cols = planes.shape[-1] // 2, planes.shape[1]
     d = dl.astype(np.int64).reshape(LIMBS, -1, R, N)
     q = planes.astype(np.int64)
     t, c = np.arange(N)[:, None], np.arange(N)[None, :]
@@ -95,9 +96,9 @@ def kernel_model(dl, planes, chunk, split, rng=None):
     per_block = len(chunks) // split
     parts, worst = [], 0
     for z in range(split):
-        acc = np.zeros((8, d.shape[1], KP1, N), np.int64)
+        acc = np.zeros((8, d.shape[1], cols, N), np.int64)
         for r, lo in chunks[z * per_block:(z + 1) * per_block]:
-            for col in range(KP1):
+            for col in range(cols):
                 for lb in range(8):
                     a = q[r, col, lb][toeplitz[:, lo:lo + chunk]]   # [t, c]
                     for la in range(min(LIMBS, 8 - lb)):
@@ -168,6 +169,34 @@ def test_int32_planes_hold_the_worst_case(N, case):
         # (-128)(-128), over the c <= t that read K and not -K
         assert worst >= 3 * R * 128 * 128 * (N // 2)
     np.testing.assert_array_equal(got, _port(dl, key))
+
+
+@pytest.mark.parametrize("cols", [(0, 1), (1, 2)], ids=["col0", "col1"])
+@pytest.mark.parametrize("chunk,split", [(128, 1), (64, 4)])
+def test_column_shard_equals_those_columns(inputs, cols, chunk, split):
+    """A key of one output column (the key-sharded blind rotation's shard
+    ``bsk_limbs[:, :, cols]``): the plain version and the kernel's model
+    give those columns of the full product, bit for bit."""
+    dl, key = inputs
+    full = _port(dl, key)
+    shard = _planes(key)[:, cols[0]:cols[1]].contiguous()
+    got = ep.ext_product_plain(torch.from_numpy(dl), shard)
+    assert tuple(got.shape) == (B, 1, key.shape[-1])
+    np.testing.assert_array_equal(torus.to_numpy(got),
+                                  full[:, cols[0]:cols[1]])
+    model, _ = kernel_model(dl, shard.numpy(), chunk, split,
+                            np.random.default_rng(split))
+    np.testing.assert_array_equal(model, full[:, cols[0]:cols[1]])
+
+
+def test_column_shard_counts_in_the_picked_grid():
+    """``pick_body`` counts the key's columns in the grid: at B=17 a
+    one-column shard has too few blocks for chunks of 1024 (fewer than 2
+    a SM) and stages 512 at a time, where the whole key does not."""
+    assert ep.pick_body(17, 2048, 132) == (1, 1024, 4)
+    assert ep.pick_body(17, 2048, 132, 1) == (1, 512, 8)
+    for b in (1, 8, 17, 2048):
+        ep._check_body(ep.pick_body(b, 2048, 132, 1), 2048)
 
 
 def test_plain_matches_the_u64_convolution(inputs):
@@ -273,6 +302,7 @@ def test_out_and_accumulate_forms_equal_the_returning_form(inputs,
 @pytest.mark.parametrize("bad", ["dl_dtype", "key_dtype", "key_shape",
                                  "limbs", "size", "small", "stride",
                                  "groups", "chunk", "split", "too large",
+                                 "cols", "out cols",
                                  "out shape", "out dtype",
                                  "accumulate without out"])
 def test_wrapper_rejects_bad_inputs(inputs, monkeypatch, bad):
@@ -304,6 +334,11 @@ def test_wrapper_rejects_bad_inputs(inputs, monkeypatch, bad):
         dl, key = dl.repeat(1, 1, 2048 // N), key.repeat(1, 1, 1, 2048 // N)
         monkeypatch.setattr(ep, "SHARED_MEMORY", 100 * 1024)
         kwargs["body"] = (2, 2048, 1)
+    elif bad == "cols":
+        key = torch.cat([key, key[:, :1]], dim=1)
+    elif bad == "out cols":
+        key = key[:, :1].contiguous()
+        kwargs["out"] = torch.zeros((B, KP1, N), dtype=torch.int64)
     elif bad == "out shape":
         kwargs["out"] = torch.zeros((B, KP1, 2 * N), dtype=torch.int64)
     elif bad == "out dtype":

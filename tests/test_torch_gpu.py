@@ -829,3 +829,120 @@ def test_packed_key_round_trip_on_the_card(stepwise, tmp_path, params,
     hit = ck.get_server_key(with_ntt2, path)
     assert torch.equal(hit.backend.sc.keys.ksk_limbs,
                        srv.backend.sc.keys.ksk_limbs)
+
+
+# ---------------------------------------------------------------------------
+# Sharding over torch.distributed ranks on the card (parallel.py)
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("cols", [0, 1], ids=["col0", "col1"])
+@pytest.mark.parametrize("B", [8, 99])
+@pytest.mark.parametrize("n", [128, 2048])
+def test_ext_product_column_shard_in_every_body(stepwise, n, B, cols):
+    """K3 on a one-column shard of the key (the key-sharded blind
+    rotation's ``bsk_limbs[:, :, cols]``), in the picked body and every
+    body of ``_k3_bodies``: those columns of the full product, bit for
+    bit, fresh and adding into an accumulator."""
+    gen = torch.Generator().manual_seed(n + B + cols)
+    dl = torch.randint(-128, 128, (3, B, 2 * n), dtype=torch.int8,
+                       generator=gen).to(stepwise)
+    bsk = torch.randint(-2**63, 2**63 - 1, (1, 2, 2, n), dtype=torch.int64,
+                        generator=gen)
+    limbs = keys.pack_bsk_limbs(bsk, stepwise)[0]
+    shard = limbs[:, cols:cols + 1].contiguous()
+    want = ep.ext_product_plain(dl, limbs)[:, cols:cols + 1]
+    start = torch.randint(-2**63, 2**63 - 1, (B, 1, n), dtype=torch.int64,
+                          generator=gen).to(stepwise)
+    for body in [None] + _k3_bodies(n):
+        assert torch.equal(ep.ext_product(dl, shard, body=body), want), body
+        acc = start.clone()
+        ep.ext_product(dl, shard, out=acc, accumulate=True, body=body)
+        assert torch.equal(acc, torus.add(start, want)), body
+    torch.cuda.synchronize()
+
+
+def _pbs_call(name, cts, table, source, **extra):
+    return (name, dict(ct=cts, lut_idx=np.zeros(len(cts), np.int64),
+                       keys=source, tables=[table], **extra))
+
+
+def test_sharded_pbs_over_two_gloo_ranks_on_the_card(stepwise, key_material,
+                                                     key_material64):
+    """Two gloo ranks sharing the card: the batch-sharded PBS at both CI
+    sets (PARAM_TEST_ZERO_NOISE in the served mode, rounded + approx) and
+    the key-sharded PBS (exact) are bit-identical to one process's
+    pbs_batch in the same mode; the polynomial-sharded forward transform
+    to the numpy plan; the lane-sharded contains decrypts.  Between them
+    the ranks pass CUDA tensors through gloo's all_gather, all_reduce,
+    all_to_all and broadcast; each rank ran its kernels."""
+    from fhestring_tpu_torch import dryrun, parallel
+    from fhestring_tpu_torch.crypto import ntt_plan
+
+    table = [(5 * m + 2) % 16 for m in range(16)]
+    rng = np.random.default_rng(21)
+    sk32, _ = ref.keygen(P, np.random.default_rng(11))
+    sk64, _ = ref.keygen(P64, np.random.default_rng(12))
+    cts32 = np.stack([ref.shortint_encrypt(sk32, int(m), rng)
+                      for m in rng.integers(0, 16, size=5)])
+    cts64 = np.stack([ref.shortint_encrypt(sk64, int(m), rng)
+                      for m in rng.integers(0, 16, size=8)])
+    x = rng.integers(-127, 128, size=(3, 2048)).astype(np.int32)
+    sources = {
+        "32": dryrun.KeySource(P, arrays=(key_material[0].bsk,
+                                          key_material[0].ksk)),
+        "64": dryrun.KeySource(P64, arrays=(key_material64[0].bsk,
+                                            key_material64[0].ksk)),
+        "seed9": dryrun.KeySource(P64, seed=9)}
+    calls = [_pbs_call("pbs_batch_sharded", cts32, table, "32"),
+             _pbs_call("pbs_batch_sharded", cts64, table, "64",
+                       rounded=True, approx=True),
+             ("ntt_fwd_poly_sharded", dict(x=x, n_poly=2048, prime=40961)),
+             ("lane_sharded_contains", dict(keys="seed9", text="Hi there",
+                                            pattern="the")),
+             _pbs_call("pbs_batch_keysharded", cts64, table, "64")]
+    recs = parallel.run_ranks(2, dryrun.sharded_calls, sources, calls,
+                              device="cuda", timeout=300.0)
+    bank32 = keys.pack_luts([table], P, stepwise)
+    bank64 = keys.pack_luts([table], P64, stepwise)
+    idx = torch.zeros(8, dtype=torch.int64, device=stepwise)
+    want = [
+        pbs.pbs_batch(torus.from_numpy(cts32, stepwise), idx[:5], bank32,
+                      key_material[1]),
+        pbs.pbs_batch(torus.from_numpy(cts64, stepwise), idx, bank64,
+                      key_material64[1], rounded=True, approx=True),
+        None, None,
+        pbs.pbs_batch(torus.from_numpy(cts64, stepwise), idx, bank64,
+                      key_material64[1], use_pallas=True)]
+    plan = ntt_plan.make_neg_plan(40961, 2048)
+    for rank in recs:
+        for i in (0, 1, 4):
+            np.testing.assert_array_equal(rank[i]["out"],
+                                          torus.to_numpy(want[i]))
+        np.testing.assert_array_equal(rank[2]["out"],
+                                      ntt_plan.neg_fwd(x, plan))
+        assert rank[0]["launches"]["blind_rotate32"] == 1
+        assert rank[1]["launches"]["blind_rotate64"] == 1
+        assert rank[4]["launches"]["rotate_decompose"] == P64.lwe_dimension
+        assert rank[4]["launches"]["ext_product"] == P64.lwe_dimension
+    assert recs[0][3]["result"] == 1
+
+
+def test_nccl_refuses_two_ranks_on_one_card(stepwise):
+    """NCCL takes one card a rank: two ranks on one card fail at their
+    first collective (ncclInvalidUsage), which is why two ranks share the
+    card over gloo.  One NCCL rank runs the sharded functions."""
+    from fhestring_tpu_torch import dryrun, parallel
+    from fhestring_tpu_torch.crypto import ntt_plan
+
+    x = np.random.default_rng(3).integers(-127, 128, size=(2, 2048)).astype(
+        np.int32)
+    calls = [("ntt_fwd_poly_sharded", dict(x=x, n_poly=2048, prime=40961))]
+    got = parallel.run_ranks(1, dryrun.sharded_calls, {}, calls,
+                             backend="nccl", device="cuda", timeout=120.0)
+    np.testing.assert_array_equal(
+        got[0][0]["out"],
+        ntt_plan.neg_fwd(x, ntt_plan.make_neg_plan(40961, 2048)))
+    if torch.cuda.device_count() == 1:
+        with pytest.raises(parallel.RankError):
+            parallel.run_ranks(2, dryrun.sharded_calls, {}, calls,
+                               backend="nccl", device="cuda", timeout=120.0)

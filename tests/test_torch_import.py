@@ -23,6 +23,7 @@ MODULES = [
     "fhestring_tpu_torch.numpy_ref",
     "fhestring_tpu_torch.native",
     "fhestring_tpu_torch.crypto.ntt",
+    "fhestring_tpu_torch.crypto.ntt_plan",
     "fhestring_tpu_torch.crypto.keys",
     "fhestring_tpu_torch.crypto.kernels.cuda_build",
     "fhestring_tpu_torch.crypto.kernels.cluster",
@@ -44,8 +45,11 @@ MODULES = [
     "fhestring_tpu_torch.service",
     "fhestring_tpu_torch.utils",
     "fhestring_tpu_torch.cli",
+    "fhestring_tpu_torch.parallel",
+    "fhestring_tpu_torch.dryrun",
     "fhestring_tpu_torch.tools.stepwise_sweep",
     "fhestring_tpu_torch.tools.k3_phases",
+    "fhestring_tpu_torch.tools.k3_versions",
     "fhestring_tpu_torch.tools.rotation_sweep",
     "fhestring_tpu_torch.tools.step_breakdown",
     "fhestring_tpu_torch.tools.profile_requests",
