@@ -114,11 +114,14 @@ noise margin (PARAM_PROD keys made again from seed 0):
     PBS at B=KEYSHARD_B (exact: K5 + K3 on each rank's column shard of
     the key), the polynomial-sharded forward, inverse and ext_group NTT at
     N=2048, each bit-identical to one process (the step-wise route for
-    the key-sharded one) and to the numpy plan, with each rank's launches;
-    rank 0 packs each key and saves it with serialize, the other loads
-    it; the MiB of key a rank holds; then the dry run's four stages
+    the key-sharded one) and to the numpy plan, with each rank's launches,
+    the ranks loading the keys this process saved with serialize; the MiB
+    of key a rank holds; a key-sharded step split into K5 + K3, the
+    all_gather and the add, each measured; then the dry run's four stages
     (``fhestring_tpu_torch.dryrun``) at PARAM_PROD on S x PAT over 2 gloo
-    ranks: Contains with PROD_COUNTS, all decrypted to Python's answers;
+    ranks (rank 0 packs the keys and saves them with serialize, the other
+    loads them): Contains with PROD_COUNTS, all decrypted to Python's
+    answers;
 23. NOISE_SAMPLES PARAM_PROD bootstraps in the served mode and their 4x +
     y packs bootstrapped again: zero decode failures, sigma and margin.
 
@@ -1176,18 +1179,21 @@ def sharded_on_the_card(client, turbo, dkeys, tkeys, phase):
     sharing the card and over 1 NCCL rank: each rank's outputs
     bit-identical to this process's pbs_batch in the same mode (K5 + K3
     for (b)) and to the numpy plan, each rank's launches one K2 (K1) for
-    its rows, and n each of K5 and K3 for (b).  Rank 0 packs each key
-    from seed 0 and saves it with serialize; the other rank loads it.
-    (c) the dry run's four stages at PARAM_PROD on S x PAT over 2 gloo
-    ranks, decrypted to Python's answers, Contains with PROD_COUNTS."""
+    its rows, and n each of K5 and K3 for (b), whose step is also split
+    into its measured parts.  This process saves its packed keys with
+    serialize, and every rank loads them.  (c) the dry run's four stages
+    at PARAM_PROD on S x PAT over 2 gloo ranks (rank 0 makes the keys from
+    seed 0, packs and saves them, the other loads them), decrypted to
+    Python's answers, Contains with PROD_COUNTS."""
     import shutil
 
     import numpy as np
     import torch
 
     from fhestring_tpu_torch import PARAM_PROD, PARAM_TURBO, dryrun, parallel
-    from fhestring_tpu_torch import torus
+    from fhestring_tpu_torch import serialize, torus
     from fhestring_tpu_torch.crypto import keys, ntt_plan, pbs
+    from fhestring_tpu_torch.server import ServerKey
 
     dev = client.device
     n, N = PARAM_PROD.lwe_dimension, PARAM_PROD.polynomial_size
@@ -1223,31 +1229,35 @@ def sharded_on_the_card(client, turbo, dkeys, tkeys, phase):
                  "inv": ntt_plan.neg_inv(ahat, plan),
                  "ext": ntt_plan.neg_inv(ntt_plan._center(acc, prime), plan)}
 
-    def pbs_call(name, ct, source, **extra):
-        return (name, dict(ct=torus.to_numpy(ct),
-                           lut_idx=np.zeros(len(ct), np.int64), keys=source,
-                           tables=[TABLE], **extra))
+    workdir = os.path.join(ROOT, "fhestring_tpu_torch", "build", "smoke22")
+    os.makedirs(workdir, exist_ok=True)
+    paths = {name: os.path.join(workdir, f"{name}.npz")
+             for name in ("prod", "turbo")}
 
-    poly = dict(n_poly=N, prime=prime)
-    calls = {"turbo": pbs_call("pbs_batch_sharded", tcts, "turbo"),
-             "prod": pbs_call("pbs_batch_sharded", cts, "prod", **prod),
-             "fwd": ("ntt_fwd_poly_sharded", dict(x=x, **poly)),
-             "inv": ("ntt_inv_poly_sharded", dict(ahat=ahat, **poly)),
-             "ext": ("ext_group_poly_sharded",
-                     dict(digits=digits, khat_prime=khat, **poly)),
-             "keysharded": pbs_call("pbs_batch_keysharded", kcts, "prod")}
+    def pbs_call(fn, ct, source, **route):
+        return (fn, (paths[source], torus.to_numpy(ct),
+                     np.zeros(len(ct), np.int64), [TABLE]), route)
+
+    def poly_call(fn, *arrays):
+        return (dryrun.poly_sharded, (fn,) + arrays,
+                dict(n_poly=N, prime=prime))
+
+    calls = {"turbo": pbs_call(dryrun.batch_sharded, tcts, "turbo"),
+             "prod": pbs_call(dryrun.batch_sharded, cts, "prod", **prod),
+             "fwd": poly_call(parallel.ntt_fwd_poly_sharded, x),
+             "inv": poly_call(parallel.ntt_inv_poly_sharded, ahat),
+             "ext": poly_call(parallel.ext_group_poly_sharded, digits, khat),
+             "keysharded": pbs_call(dryrun.key_sharded, kcts, "prod")}
     launches = {"turbo": {"blind_rotate32": 1},
                 "prod": {"blind_rotate64": 1},
                 "keysharded": {"rotate_decompose": n, "ext_product": n}}
-    workdir = os.path.join(ROOT, "fhestring_tpu_torch", "build", "smoke22")
-    os.makedirs(workdir, exist_ok=True)
     try:
-        sources = {name: dryrun.KeySource(P, 0, os.path.join(
-            workdir, f"{name}.npz")) for name, P in (("prod", PARAM_PROD),
-                                                     ("turbo", PARAM_TURBO))}
+        for name, (P, keys_) in (("prod", (PARAM_PROD, dkeys)),
+                                 ("turbo", (PARAM_TURBO, tkeys))):
+            serialize.save_packed_server_key(paths[name], ServerKey(keys_, P))
         for world, backend in ((2, "gloo"), (1, "nccl")):
             t0 = time.perf_counter()
-            recs = parallel.run_ranks(world, dryrun.sharded_calls, sources,
+            recs = parallel.run_ranks(world, dryrun.in_turn,
                                       list(calls.values()), backend=backend,
                                       device="cuda", timeout=RANKS_TIMEOUT)
             wall = time.perf_counter() - t0
@@ -1271,6 +1281,8 @@ def sharded_on_the_card(client, turbo, dkeys, tkeys, phase):
             held = got["keysharded"]["bytes"]
             whole = got["keysharded"]["unsharded_bytes"]
             step_ms = got["keysharded"]["seconds"] * 1e3 / n
+            parts = {k: v * 1e3 / n
+                     for k, v in got["keysharded"]["step_parts"].items()}
             print(f"phase {phase} sharded ({world} {backend} rank"
                   f"{'s' if world > 1 else ''} on the card, {wall:.1f} s "
                   f"with start-up, staged through the host by the port: "
@@ -1285,10 +1297,13 @@ def sharded_on_the_card(client, turbo, dkeys, tkeys, phase):
                   f"and {n} K3 launches a rank; a rank holds KSK "
                   f"{held['ksk'] / 2**20:.1f} of {whole['ksk'] / 2**20:.1f} "
                   f"MiB and BSK limbs {held['bsk'] / 2**20:.1f} of "
-                  f"{whole['bsk'] / 2**20:.1f} MiB; a step {step_ms:.3f} ms "
-                  f"= kernels {kernels_ms:.4f} ms (K5 + K3 on a column, "
-                  f"device) + all_gather and host {step_ms - kernels_ms:.3f}"
-                  f" ms; (d) N={N} mod {prime}: fwd "
+                  f"{whole['bsk'] / 2**20:.1f} MiB; a step {step_ms:.4f} ms;"
+                  f" a step synchronised after each part, rank 0: "
+                  f"{sum(parts.values()):.4f} ms = K5 + K3 "
+                  f"{parts['kernels']:.4f} ms + all_gather "
+                  f"{parts['all_gather']:.4f} ms + add {parts['add']:.4f} ms"
+                  f" (K5 + K3 on a column alone: {kernels_ms:.4f} ms device "
+                  f"time); (d) N={N} mod {prime}: fwd "
                   f"{got['fwd']['seconds'] * 1e3:.1f} ms, inv "
                   f"{got['inv']['seconds'] * 1e3:.1f} ms, ext_group (4 rows) "
                   f"{got['ext']['seconds'] * 1e3:.1f} ms, equal to the numpy "

@@ -24,9 +24,11 @@ and checks the results.  Any failed check raises.  Usage:
         --backend gloo
 
 (``--device cpu`` runs the kernels' plain versions; NCCL needs one card a
-rank.)  ``sharded_calls`` runs a list of ``parallel.py``'s functions on
-numpy inputs and returns their outputs, times and kernel launches: the
-rank function of the tests and of ``chip_smoke.py``.
+rank.)  ``batch_sharded``, ``key_sharded``, ``poly_sharded`` and
+``lane_sharded_contains`` run one of ``parallel.py``'s calls on numpy
+inputs and return its output, time and kernel launches, and ``in_turn``
+runs several in one spawn: the rank functions of the tests and of
+``chip_smoke.py``.
 """
 
 from __future__ import annotations
@@ -38,7 +40,6 @@ import os
 import sys
 import tempfile
 import time
-import types
 
 import numpy as np
 import torch
@@ -110,40 +111,25 @@ def identity_bootstrap():
 # Keys and inputs
 # ---------------------------------------------------------------------------
 
-@dataclasses.dataclass
-class KeySource:
-    """Where a rank gets its server key.  From ``arrays`` (numpy bsk, ksk
-    of a ``ServerKeys``): every rank packs them.  Else rank 0 makes a
-    ``ClientKey(params, seed)`` and packs its server key, and, with
+def load_keys(group, device, params: CryptoParams, seed: int = 0,
+              path: str | None = None):
+    """(ClientKey on rank 0 or None, ServerKey) on this rank.  Rank 0 makes
+    a ``ClientKey(params, seed)`` and packs its server key, and, with
     ``path``, saves it there with ``serialize`` for the other ranks to
     load; without a path every rank makes the same keys from the seed."""
+    from . import serialize
 
-    params: CryptoParams
-    seed: int = 0
-    path: str | None = None
-    arrays: tuple | None = None
-
-    def load(self, group, device):
-        """(ClientKey on rank 0 or None, ServerKey) on this rank."""
-        from . import serialize
-        from .server import ServerKey
-
-        rank = dist.get_rank(group)
-        if self.arrays is not None:
-            bsk, ksk = self.arrays
-            raw = types.SimpleNamespace(bsk=bsk, ksk=ksk, params=self.params)
-            return None, ServerKey(K.pack_server_keys(raw, device),
-                                   self.params)
-        if rank == 0 or self.path is None:
-            ck = ClientKey(self.params, self.seed, device=device)
-            server = ck.get_server_key()
-            if self.path is not None:
-                serialize.save_packed_server_key(self.path, server)
-        dist.barrier(group=group)
-        if rank != 0 and self.path is not None:
-            ck, server = None, serialize.load_packed_server_key(
-                self.path, device=device)
-        return (ck if rank == 0 else None), server
+    rank = dist.get_rank(group)
+    if rank == 0 or path is None:
+        ck = ClientKey(params, seed, device=device)
+        server = ck.get_server_key()
+        if path is not None:
+            serialize.save_packed_server_key(path, server)
+    dist.barrier(group=group)
+    if rank != 0 and path is not None:
+        ck, server = None, serialize.load_packed_server_key(
+            path, device=device)
+    return (ck if rank == 0 else None), server
 
 
 def _replicated(group, device, make, shape):
@@ -174,18 +160,13 @@ def _string(ck, server, group, device, text: str, padding: int):
 # ---------------------------------------------------------------------------
 
 def stage_contains(ck, server, group, device, text: str, pattern: str,
-                   padding: int | None = None) -> dict:
-    """Lane-sharded contains (``server.contains``, as a request calls it),
-    decrypted on rank 0 and held to Python's answer.  padding: NULs after
-    the text (default: up to the next multiple of the group's size, at
-    least 1, as the JAX dry run pads)."""
-    world = dist.get_world_size(group)
-    pad = padding
-    if pad is None:
-        pad = world - len(text) % world if len(text) % world else world
-    s = _string(ck, server, group, device, text, pad)
+                   padding: int) -> dict:
+    """Lane-sharded contains (``server.contains``, as a request calls it)
+    of ``text`` + ``padding`` NULs, decrypted on rank 0 and held to
+    Python's answer."""
+    s = _string(ck, server, group, device, text, padding)
     pat = _string(ck, server, group, device, pattern, 0)
-    rec = {"padding": pad}
+    rec = {"padding": padding}
     with _measured(group, device, rec), parallel.lane_sharded(server,
                                                          group):
         out = server.contains(s, pat)
@@ -353,10 +334,14 @@ def dryrun_multichip(group, device,
     kernel launches, (PBS items, batches) and, on rank 0, what it
     decrypted."""
     world = dist.get_world_size(group)
-    ck, server = KeySource(params, 0, key_path).load(group, device)
+    ck, server = load_keys(group, device, params, 0, key_path)
+    text_c = text or "ab" * world
+    # NULs up to the next multiple of the group's size, at least one, as
+    # the JAX dry run pads
+    pad = world - len(text_c) % world if len(text_c) % world else world
     out = {}
-    out["contains"] = stage_contains(ck, server, group, device,
-                                     text or "ab" * world, pattern or "b")
+    out["contains"] = stage_contains(ck, server, group, device, text_c,
+                                     pattern or "b", pad)
     out["split_trim"] = stage_split_trim(ck, server, group, device,
                                          identity_splits)
     out["keysharded"] = stage_keysharded(ck, server, group, device)
@@ -367,62 +352,89 @@ def dryrun_multichip(group, device,
 
 
 # ---------------------------------------------------------------------------
-# parallel.py's functions on numpy inputs
+# Rank functions of parallel.py's calls on numpy inputs
 # ---------------------------------------------------------------------------
 
-def sharded_calls(group, device, keys: dict, calls: list) -> list:
-    """Run each call of ``calls`` on this rank (a rank function for
-    ``parallel.run_ranks``) and return, per call, a record: "out" (the
-    result as numpy), "seconds", "launches" and (PBS items, batches).
+def _timed(group, device, fn, *args, **kwargs) -> dict:
+    """``fn(*args, group=group, **kwargs)`` twice (the first loads the
+    kernels and builds the constants), the second measured: its record
+    (``_measured``) with the result in "out"."""
+    fn(*args, group=group, **kwargs)
+    rec = {}
+    with _measured(group, device, rec):
+        rec["out"] = fn(*args, group=group, **kwargs)
+    return rec
 
-    keys: name -> ``KeySource``, each loaded once.  Each call of
-    ``parallel`` runs twice, the second time measured.  A call is (name,
-    {argument: value}): a function of ``parallel`` or
-    "lane_sharded_contains" (``stage_contains``: text, pattern, padding;
-    its record has the decrypted "result" on rank 0).  Numpy arrays become
-    tensors on the device (uint64 ones with their bits), "keys" names a
-    key source and "tables" a list of LUTs packed as the bank.  A
-    key-sharded call drops the rank's full keys of its source first, so
-    that the rank holds only its shard while it runs (a later call cannot
-    use that source); its record has the "bytes" of the shard and the
-    "unsharded_bytes" of the keys."""
-    loaded = {name: src.load(group, device) for name, src in keys.items()}
-    results = []
-    for name, kwargs in calls:
-        args = dict(kwargs)
-        for k, v in args.items():
-            if isinstance(v, np.ndarray):
-                args[k] = (torus.from_numpy(v, device) if v.dtype == np.uint64
-                           else torch.from_numpy(v).to(device))
-        rec = {}
-        if name == "lane_sharded_contains":
-            ck, server = loaded[args.pop("keys")]
-            results.append(stage_contains(ck, server, group, device, **args))
-            continue
-        if "keys" in args:
-            source = args.pop("keys")
-            server = loaded[source][1]
-            dkeys = server.backend.sc.keys
-            args["lut_bank"] = K.pack_luts(args.pop("tables"), server.params,
-                                           device)
-            if name == "pbs_batch_keysharded":
-                args["shard"] = parallel.shard_keys(dkeys, group)
-                rec["bytes"] = args["shard"].nbytes()
-                rec["unsharded_bytes"] = {"ksk": dkeys.ksk_limbs.numel(),
-                                          "bsk": dkeys.bsk_limbs.numel()}
-                del loaded[source], server, dkeys
-                if device.type == "cuda":
-                    torch.cuda.empty_cache()
-            else:
-                args["keys"] = dkeys
-        fn = getattr(parallel, name)
-        fn(group=group, **args)  # warm-up: loads kernels, builds constants
-        with _measured(group, device, rec):
-            out = fn(group=group, **args)
-        rec["out"] = (torus.to_numpy(out) if "lut_bank" in args
-                      else out.cpu().numpy())
-        results.append(rec)
-    return results
+
+def _pbs_inputs(device, key_path: str, ct: np.ndarray, lut_idx: np.ndarray,
+                tables: list):
+    """The packed server key saved at key_path, ct (uint64) and lut_idx as
+    tensors, and tables packed as the LUT bank, on the device."""
+    from . import serialize
+
+    server = serialize.load_packed_server_key(key_path, device=device)
+    bank = K.pack_luts(tables, server.params, device)
+    return (server, torus.from_numpy(ct, device),
+            torch.from_numpy(lut_idx).to(device), bank)
+
+
+def batch_sharded(group, device, key_path: str, ct: np.ndarray,
+                  lut_idx: np.ndarray, tables: list, **route) -> dict:
+    """``parallel.pbs_batch_sharded`` with the route keywords, the whole
+    batch's result as uint64 numpy in "out"."""
+    server, ct, idx, bank = _pbs_inputs(device, key_path, ct, lut_idx, tables)
+    rec = _timed(group, device, parallel.pbs_batch_sharded, ct, idx, bank,
+                 server.backend.sc.keys, **route)
+    rec["out"] = torus.to_numpy(rec["out"])
+    return rec
+
+
+def key_sharded(group, device, key_path: str, ct: np.ndarray,
+                lut_idx: np.ndarray, tables: list) -> dict:
+    """``parallel.pbs_batch_keysharded``: the rank keeps only its
+    ``KeyShard`` of the loaded keys while it runs.  The record adds the
+    "bytes" of the shard, the "unsharded_bytes" of the keys, and
+    "step_parts": the seconds of a further, synchronised run by part
+    (``pbs_batch_keysharded``'s ``times``)."""
+    server, ct, idx, bank = _pbs_inputs(device, key_path, ct, lut_idx, tables)
+    dkeys = server.backend.sc.keys
+    shard = parallel.shard_keys(dkeys, group)
+    whole = {"ksk": dkeys.ksk_limbs.numel(), "bsk": dkeys.bsk_limbs.numel()}
+    del server, dkeys
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+    rec = _timed(group, device, parallel.pbs_batch_keysharded, ct, idx, bank,
+                 shard)
+    rec["out"] = torus.to_numpy(rec["out"])
+    rec["bytes"], rec["unsharded_bytes"] = shard.nbytes(), whole
+    rec["step_parts"] = {}
+    parallel.pbs_batch_keysharded(ct, idx, bank, shard, group,
+                                  times=rec["step_parts"])
+    return rec
+
+
+def poly_sharded(group, device, fn, *arrays: np.ndarray, n_poly: int,
+                 prime: int) -> dict:
+    """One of ``parallel``'s polynomial-sharded functions (``fn``) on the
+    arrays as tensors; the result as int64 numpy in "out"."""
+    tensors = [torch.from_numpy(a).to(device) for a in arrays]
+    rec = _timed(group, device, fn, *tensors, n_poly, prime)
+    rec["out"] = rec["out"].cpu().numpy()
+    return rec
+
+
+def lane_sharded_contains(group, device, params: CryptoParams, seed: int,
+                          text: str, pattern: str, padding: int) -> dict:
+    """``stage_contains`` with every rank's keys made from the seed."""
+    ck, server = load_keys(group, device, params, seed)
+    return stage_contains(ck, server, group, device, text, pattern, padding)
+
+
+def in_turn(group, device, calls: list) -> list:
+    """calls: (rank function, positional arguments, keywords) triples, run
+    in turn on this rank (a rank function for ``parallel.run_ranks``, so
+    that one spawn serves them all); returns their results in order."""
+    return [fn(group, device, *args, **kwargs) for fn, args, kwargs in calls]
 
 
 # ---------------------------------------------------------------------------

@@ -232,7 +232,7 @@ def shard_keys(keys: DeviceServerKeys, group) -> KeyShard:
 
 def pbs_batch_keysharded(ct: torch.Tensor, lut_idx: torch.Tensor,
                          lut_bank: torch.Tensor, shard: KeyShard,
-                         group) -> torch.Tensor:
+                         group, times: dict | None = None) -> torch.Tensor:
     """``pbs_batch`` with the evaluation keys sharded over the group, in
     the exact mode (the JAX function's ``_ext_planes_einsum``); ct,
     lut_idx and lut_bank replicated, the result int64 [B, kN+1] on every
@@ -244,7 +244,11 @@ def pbs_batch_keysharded(ct: torch.Tensor, lut_idx: torch.Tensor,
     blind-rotation steps runs K5 (``rotate_diff_decompose``) on the whole
     accumulator, K3 (``ext_product``) on this rank's key columns, an
     ``all_gather`` of the columns (axis 1) and ``acc +=``.  Bit-identical
-    to ``pbs_batch``'s exact mode, never to K2's served mode."""
+    to ``pbs_batch``'s exact mode, never to K2's served mode.
+
+    times: a dict that the n steps add their seconds into, by part:
+    "kernels" (K5 and K3), "all_gather" and "add", with the device
+    synchronised after each part (which slows the steps; for measuring)."""
     p = shard.params
     rank, world = _rank_world(group)
     K = p.big_lwe_dimension * p.ks_level
@@ -262,12 +266,37 @@ def pbs_batch_keysharded(ct: torch.Tensor, lut_idx: torch.Tensor,
     dl = torch.empty((br64.DIGIT_LIMBS, B, kp1 * N), dtype=torch.int8,
                      device=acc.device)
     ext = torch.empty((B, cols, N), dtype=torch.int64, device=acc.device)
+    lap = _PartClock(acc.device, times)
     for j in range(p.lwe_dimension):
         rd.rotate_diff_decompose(acc, steps[j], out=dl)
         ep.ext_product(dl, shard.bsk_limbs[j], out=ext)
+        lap("kernels")
         full = all_gather(ext, group)  # [w, B, cols, N]
+        lap("all_gather")
         acc += full.permute(1, 0, 2, 3).reshape(B, kp1, N)
+        lap("add")
     return pbs.sample_extract(acc, p)
+
+
+class _PartClock:
+    """Called with a part's name, adds the seconds since its last call
+    into ``times[name]``, the device synchronised first; does nothing
+    when times is None."""
+
+    def __init__(self, device: torch.device, times: dict | None):
+        self.device, self.times = device, times
+        self.t = self._now() if times is not None else 0.0
+
+    def _now(self) -> float:
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        return time.perf_counter()
+
+    def __call__(self, part: str) -> None:
+        if self.times is not None:
+            t = self._now()
+            self.times[part] = self.times.get(part, 0.0) + t - self.t
+            self.t = t
 
 
 # ---------------------------------------------------------------------------
@@ -492,18 +521,23 @@ def _rank_main(rank: int, world: int, store_path: str, backend: str,
 
 
 def run_ranks(world: int, fn, *args, backend: str = "gloo",
-              device: str = "cpu", timeout: float = 60.0) -> list:
+              device=None, timeout: float = 60.0) -> list:
     """Run ``fn(group, device, *args)`` on ``world`` spawned processes, one
     rank each, joined by ``torch.distributed`` over a ``FileStore`` in a
     temporary directory (no port to pick, so parallel callers cannot
     collide).  fn must be importable (a child imports its module, never the
     caller's), its arguments and result picklable.  Each rank uses one CPU
-    thread and, with device "cuda", the card rank mod the card count.
+    thread and, on "cuda", the card rank mod the card count.  device None
+    means the card, and raises where there is none: the ranks run on the
+    CPU only where the caller passes ``device="cpu"``.
 
     Returns every rank's result, by rank.  If a rank raises or exits, or
     the ranks are not all done within ``timeout`` seconds (start-up
     included; also each collective's timeout), every rank is killed and
     ``RankError`` carries the failing rank's traceback."""
+    from .client import default_device
+
+    device = str(default_device(device))
     ctx = multiprocessing.get_context("spawn")
     results = ctx.Queue()
     done: dict[int, object] = {}

@@ -27,7 +27,7 @@ def records(tmp_path_factory):
     key_path = os.path.join(tmp_path_factory.mktemp("dryrun"), "key.npz")
     return parallel.run_ranks(
         WORLD, dryrun.dryrun_multichip, PARAM_TEST_ZERO_NOISE, None, None,
-        key_path, True, timeout=60.0)
+        key_path, True, device="cpu", timeout=60.0)
 
 
 def test_lane_sharded_contains(records):
@@ -70,7 +70,10 @@ def test_lane_sharded_split_is_one_ranks(records):
     assert records[0]["lane_split"]["pbs"][1] > 0
 
 
-def test_command_line_wants_a_card(capsys):
+def test_command_line_wants_a_card(capsys, monkeypatch):
     """The default device is the card: without one, exit 2 and say so."""
+    import torch
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     assert dryrun.main(["--world", "2"]) == 2
     assert "no CUDA device" in capsys.readouterr().err

@@ -861,13 +861,14 @@ def test_ext_product_column_shard_in_every_body(stepwise, n, B, cols):
     torch.cuda.synchronize()
 
 
-def _pbs_call(name, cts, table, source, **extra):
-    return (name, dict(ct=cts, lut_idx=np.zeros(len(cts), np.int64),
-                       keys=source, tables=[table], **extra))
+def _pbs_call(fn, key_path, cts, table, **route):
+    return (fn, (key_path, cts, np.zeros(len(cts), np.int64), [table]),
+            route)
 
 
 def test_sharded_pbs_over_two_gloo_ranks_on_the_card(stepwise, key_material,
-                                                     key_material64):
+                                                     key_material64,
+                                                     tmp_path):
     """Two gloo ranks sharing the card: the batch-sharded PBS at both CI
     sets (PARAM_TEST_ZERO_NOISE in the served mode, rounded + approx) and
     the key-sharded PBS (exact) are bit-identical to one process's
@@ -875,8 +876,9 @@ def test_sharded_pbs_over_two_gloo_ranks_on_the_card(stepwise, key_material,
     to the numpy plan; the lane-sharded contains decrypts.  Between them
     the ranks pass CUDA tensors through gloo's all_gather, all_reduce,
     all_to_all and broadcast; each rank ran its kernels."""
-    from fhestring_tpu_torch import dryrun, parallel
+    from fhestring_tpu_torch import dryrun, parallel, serialize
     from fhestring_tpu_torch.crypto import ntt_plan
+    from fhestring_tpu_torch.server import ServerKey
 
     table = [(5 * m + 2) % 16 for m in range(16)]
     rng = np.random.default_rng(21)
@@ -887,21 +889,20 @@ def test_sharded_pbs_over_two_gloo_ranks_on_the_card(stepwise, key_material,
     cts64 = np.stack([ref.shortint_encrypt(sk64, int(m), rng)
                       for m in rng.integers(0, 16, size=8)])
     x = rng.integers(-127, 128, size=(3, 2048)).astype(np.int32)
-    sources = {
-        "32": dryrun.KeySource(P, arrays=(key_material[0].bsk,
-                                          key_material[0].ksk)),
-        "64": dryrun.KeySource(P64, arrays=(key_material64[0].bsk,
-                                            key_material64[0].ksk)),
-        "seed9": dryrun.KeySource(P64, seed=9)}
-    calls = [_pbs_call("pbs_batch_sharded", cts32, table, "32"),
-             _pbs_call("pbs_batch_sharded", cts64, table, "64",
+    path32, path64 = str(tmp_path / "k32.npz"), str(tmp_path / "k64.npz")
+    serialize.save_packed_server_key(path32, ServerKey(key_material[1], P))
+    serialize.save_packed_server_key(path64,
+                                     ServerKey(key_material64[1], P64))
+    calls = [_pbs_call(dryrun.batch_sharded, path32, cts32, table),
+             _pbs_call(dryrun.batch_sharded, path64, cts64, table,
                        rounded=True, approx=True),
-             ("ntt_fwd_poly_sharded", dict(x=x, n_poly=2048, prime=40961)),
-             ("lane_sharded_contains", dict(keys="seed9", text="Hi there",
-                                            pattern="the")),
-             _pbs_call("pbs_batch_keysharded", cts64, table, "64")]
-    recs = parallel.run_ranks(2, dryrun.sharded_calls, sources, calls,
-                              device="cuda", timeout=300.0)
+             (dryrun.poly_sharded, (parallel.ntt_fwd_poly_sharded, x),
+              dict(n_poly=2048, prime=40961)),
+             (dryrun.lane_sharded_contains,
+              (P64, 9, "Hi there", "the", 2), {}),
+             _pbs_call(dryrun.key_sharded, path64, cts64, table)]
+    recs = parallel.run_ranks(2, dryrun.in_turn, calls, device="cuda",
+                              timeout=300.0)
     bank32 = keys.pack_luts([table], P, stepwise)
     bank64 = keys.pack_luts([table], P64, stepwise)
     idx = torch.zeros(8, dtype=torch.int64, device=stepwise)
@@ -924,6 +925,7 @@ def test_sharded_pbs_over_two_gloo_ranks_on_the_card(stepwise, key_material,
         assert rank[1]["launches"]["blind_rotate64"] == 1
         assert rank[4]["launches"]["rotate_decompose"] == P64.lwe_dimension
         assert rank[4]["launches"]["ext_product"] == P64.lwe_dimension
+        assert set(rank[4]["step_parts"]) == {"kernels", "all_gather", "add"}
     assert recs[0][3]["result"] == 1
 
 
@@ -936,13 +938,14 @@ def test_nccl_refuses_two_ranks_on_one_card(stepwise):
 
     x = np.random.default_rng(3).integers(-127, 128, size=(2, 2048)).astype(
         np.int32)
-    calls = [("ntt_fwd_poly_sharded", dict(x=x, n_poly=2048, prime=40961))]
-    got = parallel.run_ranks(1, dryrun.sharded_calls, {}, calls,
-                             backend="nccl", device="cuda", timeout=120.0)
+    calls = [(dryrun.poly_sharded, (parallel.ntt_fwd_poly_sharded, x),
+              dict(n_poly=2048, prime=40961))]
+    got = parallel.run_ranks(1, dryrun.in_turn, calls, backend="nccl",
+                             device="cuda", timeout=120.0)
     np.testing.assert_array_equal(
         got[0][0]["out"],
         ntt_plan.neg_fwd(x, ntt_plan.make_neg_plan(40961, 2048)))
     if torch.cuda.device_count() == 1:
         with pytest.raises(parallel.RankError):
-            parallel.run_ranks(2, dryrun.sharded_calls, {}, calls,
-                               backend="nccl", device="cuda", timeout=120.0)
+            parallel.run_ranks(2, dryrun.in_turn, calls, backend="nccl",
+                               device="cuda", timeout=120.0)

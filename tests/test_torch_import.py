@@ -49,7 +49,6 @@ MODULES = [
     "fhestring_tpu_torch.dryrun",
     "fhestring_tpu_torch.tools.stepwise_sweep",
     "fhestring_tpu_torch.tools.k3_phases",
-    "fhestring_tpu_torch.tools.k3_versions",
     "fhestring_tpu_torch.tools.rotation_sweep",
     "fhestring_tpu_torch.tools.step_breakdown",
     "fhestring_tpu_torch.tools.profile_requests",

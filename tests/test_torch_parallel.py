@@ -6,10 +6,11 @@ The same numpy inputs (``ref.keygen(PARAM_TEST_ZERO_NOISE,
 default_rng(7))``, the same tables and seeds) go through both; every
 output is compared bit for bit (tolerance 0).  The port runs at world 2
 and, where the JAX code allows it, at world 4: one ``run_ranks`` spawn
-per world (``dryrun.sharded_calls``), in a module fixture.  The key-sharded
-PBS needs (k+1) % world == 0, so at world 4 it is not run (the JAX test
-runs it on a 2-device mesh as well).  A hung rank fails the spawn within
-60 s.
+per world (``dryrun.in_turn`` over the rank functions of ``dryrun``), in
+a module fixture; every rank loads the JAX test's server key from a file
+the port packed and saved.  The key-sharded PBS needs (k+1) % world == 0,
+so at world 4 it is not run (the JAX test runs it on a 2-device mesh as
+well).  A hung rank fails the spawn within 60 s.
 """
 
 import dataclasses
@@ -27,7 +28,10 @@ from fhestring_tpu.crypto import pbs as dpbs
 from fhestring_tpu.numpy_ref import core as jref
 from fhestring_tpu_torch import PARAM_TEST_ZERO_NOISE, dryrun, metrics
 from fhestring_tpu_torch import parallel as tparallel
+from fhestring_tpu_torch import serialize
 from fhestring_tpu_torch.client import ClientKey
+from fhestring_tpu_torch.crypto import keys as tkeys
+from fhestring_tpu_torch.server import ServerKey
 from fhestring_tpu_torch.crypto import ntt_plan
 
 N, PRIME = 2048, ntt2.PRIMES3[1]  # 40961
@@ -65,54 +69,63 @@ def inputs():
                 x2_hat=x2_hat, digits=digits, khat=khat)
 
 
-def _pbs_call(name, cts, table, **extra):
-    return (name, dict(ct=cts, lut_idx=np.zeros(len(cts), np.int64),
-                       keys="zero", tables=[table], **extra))
+def _pbs_call(fn, key_path, cts, table, **route):
+    return (fn, (key_path, cts, np.zeros(len(cts), np.int64), [table]),
+            route)
 
 
-def _calls(inp, world):
-    poly = dict(n_poly=N, prime=PRIME)
+def _poly_call(fn, *arrays):
+    return (dryrun.poly_sharded, (fn,) + arrays, dict(n_poly=N, prime=PRIME))
+
+
+def _calls(inp, world, key_path):
     calls = {
-        "pbs": _pbs_call("pbs_batch_sharded", inp["cts"], PBS_TABLE),
-        "fwd": ("ntt_fwd_poly_sharded", dict(x=inp["x"], **poly)),
-        "inv": ("ntt_inv_poly_sharded", dict(ahat=inp["ahat"], **poly)),
-        "round_trip": ("ntt_inv_poly_sharded",
-                       dict(ahat=inp["x2_hat"], **poly)),
-        "ext": ("ext_group_poly_sharded",
-                dict(digits=inp["digits"], khat_prime=inp["khat"], **poly)),
+        "pbs": _pbs_call(dryrun.batch_sharded, key_path, inp["cts"],
+                         PBS_TABLE),
+        "fwd": _poly_call(tparallel.ntt_fwd_poly_sharded, inp["x"]),
+        "inv": _poly_call(tparallel.ntt_inv_poly_sharded, inp["ahat"]),
+        "round_trip": _poly_call(tparallel.ntt_inv_poly_sharded,
+                                 inp["x2_hat"]),
+        "ext": _poly_call(tparallel.ext_group_poly_sharded, inp["digits"],
+                          inp["khat"]),
     }
     if world == 2:
-        text, pattern, padding = CONTAINS
-        calls["contains"] = ("lane_sharded_contains",
-                             dict(keys="seed9", text=text, pattern=pattern,
-                                  padding=padding))
-        calls["keysharded"] = _pbs_call("pbs_batch_keysharded", inp["kcts"],
-                                        KEY_TABLE)
+        calls["contains"] = (dryrun.lane_sharded_contains,
+                             (PARAM_TEST_ZERO_NOISE, 9) + CONTAINS, {})
+        calls["keysharded"] = _pbs_call(dryrun.key_sharded, key_path,
+                                        inp["kcts"], KEY_TABLE)
     else:  # a batch the world does not divide: padded, then cut back
-        calls["pbs14"] = _pbs_call("pbs_batch_sharded", inp["cts"][:14],
-                                   PBS_TABLE)
+        calls["pbs14"] = _pbs_call(dryrun.batch_sharded, key_path,
+                                   inp["cts"][:14], PBS_TABLE)
     return calls
 
 
-def _run(inp, world):
-    srv = inp["srv"]
-    sources = {"zero": dryrun.KeySource(PARAM_TEST_ZERO_NOISE,
-                                        arrays=(srv.bsk, srv.ksk)),
-               "seed9": dryrun.KeySource(PARAM_TEST_ZERO_NOISE, seed=9)}
-    calls = _calls(inp, world)
-    recs = tparallel.run_ranks(world, dryrun.sharded_calls, sources,
-                               list(calls.values()), timeout=TIMEOUT)
+@pytest.fixture(scope="module")
+def key_path(inputs, tmp_path_factory):
+    """The JAX test's server key, packed by the port and saved with
+    serialize: every rank loads it."""
+    path = str(tmp_path_factory.mktemp("keys") / "server_key.npz")
+    serialize.save_packed_server_key(path, ServerKey(
+        tkeys.pack_server_keys(inputs["srv"], "cpu", PARAM_TEST_ZERO_NOISE),
+        PARAM_TEST_ZERO_NOISE))
+    return path
+
+
+def _run(inp, world, key_path):
+    calls = _calls(inp, world, key_path)
+    recs = tparallel.run_ranks(world, dryrun.in_turn, list(calls.values()),
+                               device="cpu", timeout=TIMEOUT)
     return {name: [r[i] for r in recs] for i, name in enumerate(calls)}
 
 
 @pytest.fixture(scope="module")
-def world2(inputs):
-    return _run(inputs, 2)
+def world2(inputs, key_path):
+    return _run(inputs, 2, key_path)
 
 
 @pytest.fixture(scope="module")
-def world4(inputs):
-    return _run(inputs, 4)
+def world4(inputs, key_path):
+    return _run(inputs, 4, key_path)
 
 
 @pytest.fixture(scope="module", params=[2, 4], ids=["world2", "world4"])
@@ -261,10 +274,27 @@ def test_ntt_plan_is_the_jax_plan():
 def test_run_ranks_reports_a_failing_rank():
     """A rank that raises fails the run with its traceback; ranks not done
     in time are killed and fail it too."""
-    bad = [("ntt_fwd_poly_sharded", dict(x=np.zeros((1, 100), np.int32),
-                                         n_poly=100, prime=PRIME))]
+    bad = [_poly_call(tparallel.ntt_fwd_poly_sharded,
+                      np.zeros((1, 100), np.int32))]
+    bad[0][2]["n_poly"] = 100
     with pytest.raises(tparallel.RankError, match="failed:"):
-        tparallel.run_ranks(2, dryrun.sharded_calls, {}, bad,
+        tparallel.run_ranks(2, dryrun.in_turn, bad, device="cpu",
                             timeout=TIMEOUT)
     with pytest.raises(tparallel.RankError, match="not done within"):
-        tparallel.run_ranks(2, dryrun.sharded_calls, {}, bad, timeout=0.5)
+        tparallel.run_ranks(2, dryrun.in_turn, bad, device="cpu",
+                            timeout=0.5)
+
+
+def test_run_ranks_defaults_to_the_card(monkeypatch):
+    """run_ranks with no device means the card: where there is none it
+    raises, naming device="cpu", before it spawns a rank, and never falls
+    back to the CPU."""
+    import inspect
+
+    import torch
+
+    assert inspect.signature(tparallel.run_ranks).parameters[
+        "device"].default is None
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        tparallel.run_ranks(2, dryrun.dryrun_multichip)
