@@ -1,0 +1,15 @@
+"""``contains_clear``: 1 where the string holds the pattern, passed in clear, else 0."""
+
+from fhebench import reference as ref
+
+PATTERN = "anywhere"
+ENCRYPTED_PATTERN = False
+REPLACEMENT = False
+
+
+def decode(result, text, char):
+    return char(result)
+
+
+def answer(string, pattern, to):
+    return int(ref.find(string, pattern) >= 0)

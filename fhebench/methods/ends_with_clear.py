@@ -1,0 +1,15 @@
+"""``ends_with_clear``: 1 where the string ends with the pattern, passed in clear."""
+
+from fhebench import reference as ref
+
+PATTERN = "suffix"
+ENCRYPTED_PATTERN = False
+REPLACEMENT = False
+
+
+def decode(result, text, char):
+    return char(result)
+
+
+def answer(string, pattern, to):
+    return int(ref.ends_with(string, pattern))
