@@ -321,8 +321,8 @@ class FheBackend:
 
     def _pmask(self, mask, tail: int) -> torch.Tensor:
         m = np.asarray(mask) != 0
-        return torch.from_numpy(m.reshape(m.shape + (1,) * tail)).to(
-            self.sc.device)
+        return torus.to_device(
+            torch.from_numpy(m.reshape(m.shape + (1,) * tail)), self.sc.device)
 
     def _pmask_where(self, mask, x: Blocks, y: Blocks, tail: int):
         """Select by a PLAINTEXT 0/1 mask: pure torus where, no PBS and no
@@ -354,7 +354,8 @@ class FheBackend:
         v = np.asarray(v)
         ct = np.zeros(v.shape + (p.big_lwe_dimension + 1,), np.uint64)
         ct[..., -1] = (v != 0).astype(np.uint64) * np.uint64(p.delta)
-        return Blocks(torus.from_numpy(ct, self.sc.device), 1, 0.0)
+        return Blocks(torus.to_device(torus.from_numpy(ct), self.sc.device),
+                      1, 0.0)
 
     def declare(self, x: Blocks, degree: int, noise_var: float) -> Blocks:
         """Widen (degree, noise) metadata to fixed scan-carry values.
@@ -397,8 +398,8 @@ class FheBackend:
     def take(self, x: Blocks, idx, axis=0):
         """np.take semantics along a raw ct axis (idx may be any shape)."""
         axis = axis % x.ct.dim()
-        index = torch.as_tensor(np.asarray(idx), dtype=torch.int64,
-                                device=x.ct.device)
+        index = torus.to_device(
+            torch.as_tensor(np.asarray(idx), dtype=torch.int64), x.ct.device)
         return Blocks(x.ct[(slice(None),) * axis + (index,)], x.degree,
                       x.noise_var)
 

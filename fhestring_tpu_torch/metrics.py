@@ -1,28 +1,48 @@
-"""Structured per-op metrics: PBS counts, batch widths, wall-clock.
+"""Counters and spans of the served path.
 
 The currency of the system is *bootstraps*: every homomorphic string op
 lowers to a fixed number of batched PBS calls.  This module counts them at
 the one chokepoint every LUT evaluation passes through
-(``ShortintContext._pbs_padded``) and exposes:
+(``ShortintContext._pbs_padded``), and records what the host does around
+them:
 
-- a global, always-on counter (pure Python ints incremented at dispatch
-  time);
-- ``measure(name)``: a context manager that snapshots counters + wall time
-  and records a ``MetricsRecord``;
-- ``report()``: a structured summary (dict) suitable for JSON logging.
+- ``GLOBAL``: always-on tallies, plain Python ints incremented where the
+  work is issued: PBS dispatches and their logical and padded widths, and
+  the blocking copies of plain data onto the server's device
+  (``host_copies``, counted by ``torus.to_device``);
+- a span recorder, off by default.  ``record_spans(True)`` turns it on and
+  ``record_spans(False)`` off.  While on, each ``with span(name):`` block
+  appends one ``Span`` to ``spans()``; while off, ``span`` checks one flag
+  and returns a shared no-op context manager (nothing allocated, no clock
+  read).
+
+The spans sit at the layer boundaries: ``client.call``, ``client.encode``
+and ``client.decode`` (``service.RemoteServerKey``); ``service.receive``,
+``service.decode``, ``service.encode`` and ``service.send`` (the
+``FheStringServer`` handler); ``server.<method>`` (one per public
+``ServerKey`` call; on the card it ends with a ``sync`` span, a synchronise
+of the device, so that it holds the method's device work);
+``pbs.dispatch`` with its logical ``width`` (one per batch that reaches
+``pbs_batch``); ``copy`` (each ``torus.to_device``).
+A span's ``parent`` is the innermost span open on the same thread; its
+``request`` is shared by every span of one request, on the client's thread
+and the server's: the client sends its id in the request's header and the
+server's handler joins it (``request``).  A top-level span outside any
+request scope starts a request of its own.  Ids are unique within a
+process.  Stamps are ``time.perf_counter_ns()``.
 
 The port evaluates eagerly, engine scans included (``FheBackend.scan`` is a
 Python loop), so every dispatch is one execution: there is no trace-time
-multiplier, unlike the JAX package's ``scan_scope``.  Device work is
-asynchronous; pass ``sync`` to ``measure`` to fence it before the clock
-stops.
+multiplier, unlike the JAX package's ``scan_scope``.
 """
 
 from __future__ import annotations
 
-import contextlib
 import dataclasses
+import itertools
+import threading
 import time
+from typing import NamedTuple
 
 
 @dataclasses.dataclass
@@ -32,43 +52,17 @@ class Counters:
     pbs_calls: int = 0        # number of pbs_batch dispatches
     pbs_items: int = 0        # sum of logical (unpadded) batch sizes
     pbs_items_padded: int = 0  # sum of padded batch sizes actually executed
+    host_copies: int = 0      # blocking copies of plain data to the device
 
     def snapshot(self) -> "Counters":
-        return Counters(self.pbs_calls, self.pbs_items, self.pbs_items_padded)
+        return dataclasses.replace(self)
 
     def delta(self, since: "Counters") -> "Counters":
-        return Counters(
-            self.pbs_calls - since.pbs_calls,
-            self.pbs_items - since.pbs_items,
-            self.pbs_items_padded - since.pbs_items_padded,
-        )
-
-
-@dataclasses.dataclass
-class MetricsRecord:
-    name: str
-    seconds: float
-    pbs_calls: int
-    pbs_items: int
-    pbs_items_padded: int
-
-    @property
-    def pbs_per_sec(self) -> float:
-        return self.pbs_items / self.seconds if self.seconds > 0 else 0.0
-
-    def as_dict(self) -> dict:
-        return {
-            "name": self.name,
-            "seconds": round(self.seconds, 4),
-            "pbs_calls": self.pbs_calls,
-            "pbs_items": self.pbs_items,
-            "pbs_items_padded": self.pbs_items_padded,
-            "pbs_per_sec": round(self.pbs_per_sec, 1),
-        }
+        return Counters(*(getattr(self, f.name) - getattr(since, f.name)
+                          for f in dataclasses.fields(self)))
 
 
 GLOBAL = Counters()
-RECORDS: list[MetricsRecord] = []
 
 
 def record_pbs(n_items: int, n_padded: int) -> None:
@@ -78,42 +72,141 @@ def record_pbs(n_items: int, n_padded: int) -> None:
     GLOBAL.pbs_items_padded += int(n_padded)
 
 
-@contextlib.contextmanager
-def measure(name: str, sync=None):
-    """Measure wall time + PBS tallies of a code block.
+class Span(NamedTuple):
+    """One closed span."""
 
-    sync: optional callable run before stopping the clock (e.g.
-    torch.cuda.synchronize).
-    """
-    before = GLOBAL.snapshot()
-    t0 = time.perf_counter()
-    try:
-        yield
-    finally:
-        if sync is not None:
-            sync()
-        dt = time.perf_counter() - t0
-        d = GLOBAL.delta(before)
-        RECORDS.append(MetricsRecord(
-            name, dt, d.pbs_calls, d.pbs_items, d.pbs_items_padded))
+    id: int
+    parent: int | None    # the innermost span open on its thread
+    request: int
+    name: str
+    t0_ns: int
+    t1_ns: int
+    attrs: dict
 
 
-def last() -> MetricsRecord | None:
-    return RECORDS[-1] if RECORDS else None
+_on = False
+_spans: list[Span] = []
+_local = threading.local()     # .stack: open span ids; .request: an id
+_ids = itertools.count(1)      # span and request ids alike
 
 
-def report() -> dict:
-    """Summary of all recorded measurements + global tallies."""
-    return {
-        "global": {
-            "pbs_calls": GLOBAL.pbs_calls,
-            "pbs_items": GLOBAL.pbs_items,
-            "pbs_items_padded": GLOBAL.pbs_items_padded,
-        },
-        "records": [r.as_dict() for r in RECORDS],
-    }
+def record_spans(on: bool) -> None:
+    """Turn the span recorder on or off."""
+    global _on
+    _on = bool(on)
+
+
+def recording() -> bool:
+    return _on
+
+
+def spans() -> list[Span]:
+    """The spans closed since the last ``reset``, in closing order."""
+    return list(_spans)
+
+
+class _Off:
+    """What ``span`` and ``request`` return while the recorder is off."""
+
+    __slots__ = ()
+
+    def __enter__(self):
+        return None
+
+    def __exit__(self, *exc):
+        return False
+
+
+_OFF = _Off()
+
+
+class _Open:
+    __slots__ = ("name", "attrs", "id", "parent", "t0", "owns")
+
+    def __init__(self, name: str, attrs: dict):
+        self.name, self.attrs = name, attrs
+
+    def __enter__(self):
+        stack = _local.__dict__.setdefault("stack", [])
+        self.parent = stack[-1] if stack else None
+        self.id = next(_ids)
+        self.owns = getattr(_local, "request", None) is None
+        if self.owns:
+            _local.request = next(_ids)
+        stack.append(self.id)
+        self.t0 = time.perf_counter_ns()
+        return self
+
+    def __exit__(self, *exc):
+        t1 = time.perf_counter_ns()
+        _local.stack.pop()
+        _spans.append(Span(self.id, self.parent, _local.request, self.name,
+                           self.t0, t1, self.attrs))
+        if self.owns:
+            _local.request = None
+        return False
+
+
+def span(name: str, width: int | None = None):
+    """A context manager that records ``name`` while the recorder is on;
+    ``width`` (a PBS batch's logical items) goes into the span's attrs."""
+    if not _on:
+        return _OFF
+    return _Open(name, {} if width is None else {"width": int(width)})
+
+
+class _Request:
+    __slots__ = ("id", "outer")
+
+    def __init__(self):
+        self.id = next(_ids)
+
+    def __enter__(self):
+        self.outer = getattr(_local, "request", None)
+        _local.request = self.id
+        return self
+
+    def __exit__(self, *exc):
+        _local.request = self.outer
+        return False
+
+    def join(self, rid) -> None:
+        """Take the id another thread gave this request (None: keep
+        this one)."""
+        if rid is not None:
+            self.id = _local.request = int(rid)
+
+
+def request():
+    """A request's scope on this thread: the spans that close inside it
+    carry its id, a fresh one until ``join`` gives it another.  Entering it
+    gives the scope, with ``id`` and ``join``, or None while the recorder is
+    off."""
+    if not _on:
+        return _OFF
+    return _Request()
+
+
+def span_totals(records=None) -> dict:
+    """{name: {"count", "ms", "self_ms"}} over ``records`` (default: every
+    span recorded): a span's self time is its own less its children's."""
+    records = _spans if records is None else records
+    child_ns: dict[int, int] = {}
+    for s in records:
+        if s.parent is not None:
+            child_ns[s.parent] = child_ns.get(s.parent, 0) + s.t1_ns - s.t0_ns
+    out: dict[str, dict] = {}
+    for s in records:
+        row = out.setdefault(s.name, {"count": 0, "ms": 0.0, "self_ms": 0.0})
+        own = s.t1_ns - s.t0_ns
+        row["count"] += 1
+        row["ms"] += own / 1e6
+        row["self_ms"] += (own - child_ns.get(s.id, 0)) / 1e6
+    return out
 
 
 def reset() -> None:
-    GLOBAL.pbs_calls = GLOBAL.pbs_items = GLOBAL.pbs_items_padded = 0
-    RECORDS.clear()
+    """Zero the counters and drop the recorded spans."""
+    for f in dataclasses.fields(GLOBAL):
+        setattr(GLOBAL, f.name, 0)
+    _spans.clear()

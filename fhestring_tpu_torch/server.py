@@ -8,12 +8,23 @@ like the reference, e.g. mod.rs:198-211).
 
 The server never sees plaintext or secret keys — it holds only the packed
 evaluation keys (bootstrap + keyswitch).
+
+Each public method is one ``server.<method>`` span while the span recorder
+is on (``metrics.record_spans``); a method called from inside another
+records none, and the span ends after a synchronise of the key's device
+(a ``sync`` span of its own), so that it holds the method's device work.
+While the recorder is off the server does not synchronise.
 """
 
 from __future__ import annotations
 
-import numpy as np
+import functools
+import threading
 
+import numpy as np
+import torch
+
+from . import metrics
 from .ciphertext import FheChar, FheSplit, FheString, FheStrip
 from .crypto.keys import DeviceServerKeys
 from .engine.backend import FheBackend
@@ -246,3 +257,33 @@ class ServerKey:
 
     def split_ascii_whitespace(self, s: FheString) -> FheSplit:
         return self._mk_split(*self.engine.split_ascii_whitespace(s.blocks))
+
+
+_inside = threading.local()    # .method: a traced method is running
+
+
+def _traced(name: str, method):
+    label = f"server.{name}"
+
+    @functools.wraps(method)
+    def traced(self, *args):
+        if not metrics.recording() or getattr(_inside, "method", False):
+            return method(self, *args)
+        _inside.method = True
+        try:
+            with metrics.span(label):
+                out = method(self, *args)
+                device = self.backend.sc.device
+                if device.type == "cuda":
+                    with metrics.span("sync"):
+                        torch.cuda.synchronize(device)
+            return out
+        finally:
+            _inside.method = False
+    return traced
+
+
+for _name, _method in list(vars(ServerKey).items()):
+    if not _name.startswith("_") and callable(_method):
+        setattr(ServerKey, _name, _traced(_name, _method))
+del _name, _method

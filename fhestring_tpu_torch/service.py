@@ -15,6 +15,14 @@ Protocol (length-prefixed JSON header + npz payloads over TCP):
 Single-threaded, one request per connection.  The server runs each request
 on the device its key lives on; a client's results land on the device the
 ``RemoteServerKey`` was given.
+
+While the span recorder is on (``metrics.record_spans``) the client adds
+its request id to the header (``"request"``), and both ends record their
+spans under it: ``client.call`` around the round trip, with
+``client.encode`` and ``client.decode`` inside; ``service.receive``,
+``service.decode``, ``service.encode`` and ``service.send`` on the
+server's thread around the ``server.<method>`` span.  A server of either
+package ignores the key, and a request without it gets an id of its own.
 """
 
 from __future__ import annotations
@@ -28,7 +36,7 @@ import threading
 
 import numpy as np
 
-from . import torus
+from . import metrics, torus
 from .ciphertext import FheChar, FheSplit, FheString, FheStrip
 from .shortint import Blocks
 
@@ -140,14 +148,21 @@ class FheStringServer:
 
         class Handler(socketserver.BaseRequestHandler):
             def handle(self):
-                try:
-                    header, blobs = _recv(self.request)
-                    res = outer._dispatch(header, blobs)
-                    rh, rb = _pack_result(res)
-                    rh["ok"] = True
-                    _send(self.request, rh, rb)
-                except Exception as e:  # report, don't kill the server
-                    _send(self.request, {"ok": False, "error": repr(e)}, [])
+                with metrics.request() as req:
+                    try:
+                        with metrics.span("service.receive"):
+                            header, blobs = _recv(self.request)
+                            if req is not None:
+                                req.join(header.get("request"))
+                        res = outer._dispatch(header, blobs)
+                        with metrics.span("service.encode"):
+                            rh, rb = _pack_result(res)
+                        rh["ok"] = True
+                        with metrics.span("service.send"):
+                            _send(self.request, rh, rb)
+                    except Exception as e:  # report, don't kill the server
+                        _send(self.request, {"ok": False, "error": repr(e)},
+                              [])
 
         self._tcp = socketserver.TCPServer((host, port), Handler)
         self.address = self._tcp.server_address
@@ -160,15 +175,16 @@ class FheStringServer:
         clear_args = list(header.get("clear_args", []))
         args = []
         bi = 0
-        for code in spec:
-            if code in ("s", "c"):
-                blocks = _ct_from_bytes(blobs[bi], self.device)
-                args.append(FheString(blocks) if code == "s"
-                            else FheChar(blocks))
-                bi += 1
-            else:
-                v = clear_args.pop(0)
-                args.append(str(v) if code == "S" else int(v))
+        with metrics.span("service.decode"):
+            for code in spec:
+                if code in ("s", "c"):
+                    blocks = _ct_from_bytes(blobs[bi], self.device)
+                    args.append(FheString(blocks) if code == "s"
+                                else FheChar(blocks))
+                    bi += 1
+                else:
+                    v = clear_args.pop(0)
+                    args.append(str(v) if code == "S" else int(v))
         return getattr(self.server_key, op)(*args)
 
     def start(self):
@@ -196,19 +212,25 @@ class RemoteServerKey:
         self.timeout = timeout
 
     def _call(self, op, *args):
-        blobs, clear_args = [], []
-        for a in args:
-            if isinstance(a, (FheString, FheChar)):
-                blobs.append(_ct_to_bytes(a.blocks))
-            else:
-                clear_args.append(a)
-        with socket.create_connection(self.address,
-                                      timeout=self.timeout) as sock:
-            _send(sock, {"op": op, "clear_args": clear_args}, blobs)
-            header, rblobs = _recv(sock)
-        if not header.get("ok"):
-            raise RuntimeError(header.get("error"))
-        return _unpack_result(header, rblobs, self.device)
+        with metrics.request() as req, metrics.span("client.call"):
+            with metrics.span("client.encode"):
+                blobs, clear_args = [], []
+                for a in args:
+                    if isinstance(a, (FheString, FheChar)):
+                        blobs.append(_ct_to_bytes(a.blocks))
+                    else:
+                        clear_args.append(a)
+            header = {"op": op, "clear_args": clear_args}
+            if req is not None:
+                header["request"] = req.id
+            with socket.create_connection(self.address,
+                                          timeout=self.timeout) as sock:
+                _send(sock, header, blobs)
+                header, rblobs = _recv(sock)
+            if not header.get("ok"):
+                raise RuntimeError(header.get("error"))
+            with metrics.span("client.decode"):
+                return _unpack_result(header, rblobs, self.device)
 
     def __getattr__(self, name):
         if name not in _OPS:

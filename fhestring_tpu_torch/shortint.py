@@ -102,7 +102,7 @@ class ShortintContext:
         values = np.asarray(values, dtype=np.uint64)
         ct = np.zeros(values.shape + (p.big_lwe_dimension + 1,), dtype=np.uint64)
         ct[..., -1] = (values % np.uint64(p.full_space)) * np.uint64(p.delta)
-        return Blocks(torus.from_numpy(ct, self.device),
+        return Blocks(torus.to_device(torus.from_numpy(ct), self.device),
                       int(values.max()) if values.size else 0, 0.0)
 
     def from_numpy_cts(self, cts: np.ndarray, degree: int = 3) -> Blocks:
@@ -161,7 +161,8 @@ class ShortintContext:
         card nothing is padded.  The blind-rotation route and mode are
         ``pbs_route``'s.  Under ``parallel.lane_sharded`` the batch is
         sharded over the process group (``parallel.pbs_batch_sharded``)
-        and counted once, as one process counts it."""
+        and counted once, as one process counts it.  Each batch that
+        reaches ``pbs_batch`` is one ``pbs.dispatch`` span."""
         n = flat.shape[0]
         on_cpu = flat.device.type == "cpu"
         max_chunk = 4096 if on_cpu else 8192
@@ -175,14 +176,16 @@ class ShortintContext:
         else:
             padded = n
         metrics.record_pbs(n, padded)
-        if padded != n:
-            flat = torch.cat([flat, flat.new_zeros((padded - n, flat.shape[1]))])
-            idx = torch.cat([idx, idx.new_zeros(padded - n)])
-        route = pbs_route(self.keys, on_cpu)
-        if self.group is not None:
-            return parallel.pbs_batch_sharded(flat, idx, bank, self.keys,
-                                              self.group, **route)[:n]
-        return pbs_batch(flat, idx, bank, self.keys, **route)[:n]
+        with metrics.span("pbs.dispatch", width=n):
+            if padded != n:
+                flat = torch.cat([flat,
+                                  flat.new_zeros((padded - n, flat.shape[1]))])
+                idx = torch.cat([idx, idx.new_zeros(padded - n)])
+            route = pbs_route(self.keys, on_cpu)
+            if self.group is not None:
+                return parallel.pbs_batch_sharded(flat, idx, bank, self.keys,
+                                                  self.group, **route)[:n]
+            return pbs_batch(flat, idx, bank, self.keys, **route)[:n]
 
     def apply_lut(self, a: Blocks, table) -> Blocks:
         """Univariate LUT via one batched PBS. table: 16 ints in [0, 16)."""
@@ -201,8 +204,9 @@ class ShortintContext:
         assert a.noise_var <= self.max_noise_var
         bank = self._bank_for(tables)
         flat = a.ct.reshape(-1, a.ct.shape[-1])
-        idx = torch.as_tensor(np.asarray(table_idx).reshape(-1),
-                              dtype=torch.int64).to(flat.device)
+        idx = torus.to_device(
+            torch.as_tensor(np.asarray(table_idx).reshape(-1),
+                            dtype=torch.int64), flat.device)
         out = self._pbs_padded(flat, idx, bank)
         return Blocks(out.reshape(a.ct.shape), max(max(t) for t in tables), 1.0)
 

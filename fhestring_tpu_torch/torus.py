@@ -18,6 +18,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from . import metrics
+
 MASK32 = 0xFFFFFFFF
 
 
@@ -31,6 +33,19 @@ def from_numpy(arr: np.ndarray, device=None) -> torch.Tensor:
     """uint64 numpy array -> int64 tensor with the same bits."""
     arr = np.ascontiguousarray(np.asarray(arr).astype(np.uint64))
     return torch.from_numpy(arr.view(np.int64).copy()).to(device)
+
+
+def to_device(t: torch.Tensor, device) -> torch.Tensor:
+    """``t``, plain data on the host, copied onto the server's ``device``.
+
+    A blocking copy: on the card the host waits for the stream to drain.
+    Each call adds one to
+    ``metrics.GLOBAL.host_copies`` (on the CPU as well, where nothing is
+    copied, so that the CPU counts what the card does) and is recorded as a
+    ``copy`` span."""
+    metrics.GLOBAL.host_copies += 1
+    with metrics.span("copy"):
+        return t.to(device)
 
 
 def to_numpy(v: torch.Tensor) -> np.ndarray:

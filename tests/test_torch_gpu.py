@@ -949,3 +949,116 @@ def test_nccl_refuses_two_ranks_on_one_card(stepwise):
         with pytest.raises(parallel.RankError):
             parallel.run_ranks(2, dryrun.in_turn, calls, backend="nccl",
                                device="cuda", timeout=120.0)
+
+
+# ---------------------------------------------------------------------------
+# the span recorder on the card
+# ---------------------------------------------------------------------------
+
+def test_span_holds_its_kernel_on_the_trace_clock(cuda):
+    """A span around a K1 launch and a synchronise holds the kernel's
+    interval in a torch.profiler trace, mapped with the benchmark's offset
+    (``time.time_ns() - time.perf_counter_ns()``), within 1 ms at each end,
+    for each of five launches in one trace.  On an H100 the profiler's
+    device timestamps wander from the host's clock within a session
+    (-0.29 to +0.48 ms seen), so the two clocks agree to 1 ms, not to
+    50 us."""
+    import time
+
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    gen = torch.Generator().manual_seed(5)
+    acc = torch.randint(-2**31, 2**31, (8, 2, 2048), dtype=torch.int32,
+                        generator=gen).to(cuda)
+    amt = torch.randint(0, 4096, (8, 64), dtype=torch.int32,
+                        generator=gen).to(cuda)
+    khat = _random_khat(gen, 64, 2048).to(cuda)
+    br.blind_rotate32(acc, amt, khat, cluster=1)
+    torch.cuda.synchronize()
+    metrics.reset()
+    prof = profile(activities=[ProfilerActivity.CUDA])
+    offset = time.time_ns() - time.perf_counter_ns()
+    prof.start()
+    metrics.record_spans(True)
+    try:
+        for _ in range(5):
+            with metrics.span("k1"):
+                br.blind_rotate32(acc, amt, khat, cluster=1)
+                torch.cuda.synchronize()
+    finally:
+        metrics.record_spans(False)
+        prof.stop()
+    spans = metrics.spans()
+    metrics.reset()
+    kernels = sorted((e.start_ns(), e.start_ns() + e.duration_ns())
+                     for e in prof.profiler.kineto_results.events()
+                     if e.device_type() == DeviceType.CUDA
+                     and "blind_rotate32" in e.name())
+    assert len(spans) == len(kernels) == 5
+    ends = []   # (kernel start - span start, span end - kernel end), ns
+    for span, (k0, k1) in zip(spans, kernels):
+        s0, s1 = span.t0_ns + offset, span.t1_ns + offset
+        print(f"\nclock: kernel {(k1 - k0) / 1e3:.1f} us, span "
+              f"{(s1 - s0) / 1e3:.1f} us; kernel start - span start "
+              f"{(k0 - s0) / 1e3:.1f} us, span end - kernel end "
+              f"{(s1 - k1) / 1e3:.1f} us")
+        ends.append((k0 - s0, s1 - k1))
+    assert all(abs(e) <= 1_000_000 for pair in ends for e in pair), ends
+
+
+INTERACTIVE = {"contains": "sp", "contains_clear": ("s", "lo"),
+               "find": "sp", "starts_with_clear": ("s", "he"), "eq": "st",
+               "to_upper": "s", "len": "s",
+               "strip_prefix_clear": ("s", "he")}
+
+
+@pytest.fixture(scope="module", params=[P, P64], ids=lambda p: p.name)
+def served(request, cuda):
+    ck = ClientKey(request.param, seed=41, device=cuda)
+    return ck, ck.get_server_key()
+
+
+@pytest.mark.parametrize("method", sorted(INTERACTIVE))
+def test_sync_warnings_equal_host_copies(served, method):
+    """Under ``set_sync_debug_mode("warn")`` a warm request of each of the
+    interactive cells' methods synchronises the card once for each copy
+    ``host_copies`` counts, at ``torus.to_device``, and elsewhere only
+    where ``FheBackend.take`` indexes with a 0-d index tensor, which reads
+    the index back to the host (a site the counter does not count)."""
+    import inspect
+    import warnings
+
+    from fhestring_tpu_torch.engine.backend import FheBackend
+
+    ck, srv = served
+    text = {"s": ck.encrypt("hello", 1), "p": ck.encrypt_no_padding("ll"),
+            "t": ck.encrypt("help", 1)}
+    args = [text[a] if a in text else a for a in INTERACTIVE[method]]
+    getattr(srv, method)(*args)          # warm: LUT banks, kernels loaded
+    torch.cuda.synchronize()
+    before = metrics.GLOBAL.host_copies
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            getattr(srv, method)(*args)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    copies = metrics.GLOBAL.host_copies - before
+    syncs = [w for w in caught if "synchroniz" in str(w.message)]
+    sites = {}
+    for w in syncs:
+        key = f"{w.filename.rsplit('fhestring_tpu_torch', 1)[-1]}:{w.lineno}"
+        sites[key] = sites.get(key, 0) + 1
+    print(f"\nsyncs {method}: copies {copies}, warnings {len(syncs)}, "
+          f"sites {sites}")
+    lines, first = inspect.getsourcelines(FheBackend.take)
+    take = (inspect.getsourcefile(FheBackend), range(first,
+                                                     first + len(lines)))
+    at_helper = sum(w.filename == torus.__file__ for w in syncs)
+    at_take = sum(w.filename == take[0] and w.lineno in take[1]
+                  for w in syncs)
+    assert at_helper == copies, sites
+    assert at_helper + at_take == len(syncs), sites

@@ -51,7 +51,6 @@ MODULES = [
     "fhestring_tpu_torch.tools.k3_phases",
     "fhestring_tpu_torch.tools.rotation_sweep",
     "fhestring_tpu_torch.tools.step_breakdown",
-    "fhestring_tpu_torch.tools.profile_requests",
 ]
 
 _PROBE = """

@@ -1,9 +1,11 @@
-"""PBS counters and the measure() context (metrics.py).
+"""PBS counters and the span recorder (metrics.py).
 
 On the port: a twin of tests/test_metrics.py with the imports switched to
-fhestring_tpu_torch and the keys on the CPU.  Its fourth test,
-exec_count_scope under a caller's jax.jit, has no counterpart: the port
-counts every PBS eagerly and has no exec_count_scope."""
+fhestring_tpu_torch and the keys on the CPU; where the JAX package's
+``measure()`` records a block, the port's span recorder records the
+server's method.  Its fourth test, exec_count_scope under a caller's
+jax.jit, has no counterpart: the port counts every PBS eagerly and has no
+exec_count_scope."""
 
 import torch
 
@@ -20,26 +22,41 @@ def test_pbs_counters_tick_and_measure():
     s = ck.encrypt("abc", 1)
     pat = ck.encrypt_no_padding("bc")
 
-    with metrics.measure("contains"):
+    metrics.record_spans(True)
+    try:
         bit = srv.contains(s, pat)
-        assert ck.decrypt_char(bit) == 1
+    finally:
+        metrics.record_spans(False)
+    assert ck.decrypt_char(bit) == 1
 
-    rec = metrics.last()
-    assert rec is not None and rec.name == "contains"
-    assert rec.pbs_calls > 0
-    assert rec.pbs_items > 0
-    assert rec.pbs_items_padded >= rec.pbs_items
-    assert rec.seconds > 0
+    g = metrics.GLOBAL
+    assert g.pbs_calls > 0 and g.pbs_items > 0
+    assert g.pbs_items_padded >= g.pbs_items
+    assert g.host_copies > 0
+    top = [x for x in metrics.spans() if x.parent is None]
+    assert [x.name for x in top] == ["server.contains"]
+    assert top[0].t1_ns > top[0].t0_ns
 
-    rep = metrics.report()
-    assert rep["global"]["pbs_calls"] >= rec.pbs_calls
-    assert rep["records"][-1]["name"] == "contains"
+    tot = metrics.span_totals()
+    assert tot["server.contains"]["count"] == 1
+    assert tot["pbs.dispatch"]["count"] == g.pbs_calls
+    assert tot["copy"]["count"] == g.host_copies
+    assert 0 < tot["server.contains"]["self_ms"] < tot["server.contains"]["ms"]
 
 
 def test_reset_clears():
+    metrics.record_spans(True)
+    try:
+        with metrics.span("x"):
+            metrics.record_pbs(3, 8)
+            metrics.GLOBAL.host_copies += 1
+    finally:
+        metrics.record_spans(False)
+    assert metrics.spans() and metrics.GLOBAL.pbs_calls
     metrics.reset()
-    assert metrics.GLOBAL.pbs_calls == 0
-    assert metrics.report()["records"] == []
+    assert metrics.GLOBAL == metrics.Counters()
+    assert metrics.spans() == []
+    assert metrics.span_totals() == {}
 
 
 def test_pbs_counts_identical_cold_vs_warm(monkeypatch):
