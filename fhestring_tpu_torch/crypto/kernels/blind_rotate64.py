@@ -73,7 +73,7 @@ DIGIT_LIMBS = 3  # balanced int8 limbs of a digit: (BASE_LOG + 8) // 8
 APPROX_MIN_SHIFT = 3  # approx mode drops shift planes s < 3
 # One wave of each body relative to the one-block body's, measured on an
 # H100 at N = 2048 (PERF.md); every mode of the kernel is within 5% of it.
-WAVE_COST = WaveCost(one_block=(1.0, 2.0), cluster={2: 0.560, 4: 0.323})
+WAVE_COST = WaveCost(one_block=(1.0, 2.0), cluster={2: 0.575, 4: 0.342})
 
 _SHIFT = 64 - BASE_LOG
 _MASK = (1 << BASE_LOG) - 1

@@ -51,11 +51,12 @@
 // B = 2048 at an H100's 64 int32 lanes x 132 SMs x 1.98 GHz.  One item on
 // one SM can use 1/132 of that rate, and a request's batches are 5 to 40
 // items, so the clusters spread an item over 4 SMs while the batch leaves
-// them idle: at B = 8 the 4-block body reaches about 5% of the bound (the
-// one-block body 1.6%); at B = 2048 the one-block body reaches about 32%
-// of it.  The rest goes to shared memory traffic and address arithmetic (9
-// instructions a butterfly as compiled), bank conflicts in the passes of
-// distance 16 and below, and barriers; tensor-core transforms are later
+// them idle: at B = 8 the 4-block body reaches about 5.6% of the bound
+// (11.3 ms; the one-block body 1.7%); at B = 2048 the one-block body
+// reaches about 35% of it (455 ms).  The rest goes to shared memory
+// traffic and address arithmetic (9 instructions a butterfly as compiled)
+// and barriers; the transforms' work buffers are swizzled (ntt64.cuh), so
+// no pass has bank conflicts; tensor-core transforms are later
 // work.
 
 #include <cstdint>
@@ -78,19 +79,21 @@ constexpr int kDigits = kRows * kLevels;   // R
 constexpr int kPlanes = 4;             // byte limbs of the key payload
 constexpr int kOut = kRows * kPlanes;  // product planes per prime
 constexpr int kThreads = 512;
+static_assert(kThreads % 256 == 0, "ntt64.cuh: swizzle_shift");
 
 static_assert(kOut >= kDigits, "work buffer holds the digit polys");
 static_assert(kRows == ntt64::kRows && kLevels == ntt64::kLimbs,
               "the cluster bodies split 2 rows of 3 digit polys");
 
 // Digits of diff = acc * X^a - acc of the `rows` accumulator rows at acc, as
-// residues mod P: x[(r * 3 + lev) * n + t].  Identical to
+// residues mod P: x[(r * 3 + lev) * n + swizzle(t)].  Identical to
 // numpy_ref.decompose on diff << 32 (base 2^8, 3 levels, level 0 most
 // significant).
 template <uint32_t P>
 __device__ void load_digits(uint32_t* x, const uint32_t* acc, int rows, int a,
                             int n, int log_n) {
   constexpr int shift = 32 - 8 * kLevels;
+  const int at_shift = ntt64::swizzle_shift(threadIdx.x & (n - 1));
   for (int idx = threadIdx.x; idx < rows * n; idx += blockDim.x) {
     const int r = idx >> log_n;
     const int t = idx & (n - 1);
@@ -99,6 +102,7 @@ __device__ void load_digits(uint32_t* x, const uint32_t* acc, int rows, int a,
     if (src >= n) rot = 0u - rot;
     const uint32_t diff = rot - acc[idx];
     uint32_t state = (diff >> shift) + ((diff >> (shift - 1)) & 1u);
+    const int at = t + at_shift;
 #pragma unroll
     for (int lev = kLevels - 1; lev >= 0; --lev) {
       int d = static_cast<int>(state & 255u);
@@ -106,7 +110,7 @@ __device__ void load_digits(uint32_t* x, const uint32_t* acc, int rows, int a,
       const int carry = d >= 128;
       d -= carry << 8;
       state += static_cast<uint32_t>(carry);
-      x[(r * kLevels + lev) * n + t] =
+      x[(r * kLevels + lev) * n + at] =
           d < 0 ? static_cast<uint32_t>(d + static_cast<int>(P))
                 : static_cast<uint32_t>(d);
     }
@@ -117,22 +121,25 @@ __device__ void load_digits(uint32_t* x, const uint32_t* acc, int rows, int a,
 // x[(col - col0) * 4 + s][h] = sum_i d_i[h] * key[i][col * 4 + s][h] mod P
 // for the 4 product planes s of each of the kCols output rows from col0,
 // with d0 and d1 the transformed digit polys [3][n] of accumulator rows 0
-// and 1.  d0 and d1 may lie inside x: each column h is read, then written,
-// by one thread only.  key: this step's and this prime's hats, u16
-// [R][8][n] in device memory, or (kStaged) a copy of the kCols rows' polys
-// in shared memory, u16 [R][kCols * 4][n] with col0 = 0.
+// and 1 (x, d0 and d1 swizzled, the key not).  d0 and d1 may lie inside x:
+// each column is read, then written, by one thread only.  key: this step's
+// and this prime's hats, u16 [R][8][n] in device memory, or (kStaged) a
+// copy of the kCols rows' polys in shared memory, u16 [R][kCols * 4][n]
+// with col0 = 0.
 template <uint32_t P, int kCols, bool kStaged = false>
 __device__ void digit_products(uint32_t* x, const uint32_t* d0,
                                const uint32_t* d1,
                                const uint16_t* __restrict__ key, int col0,
                                int n) {
   constexpr int kRowPolys = kStaged ? kCols * kPlanes : kOut;
+  const int shift = ntt64::swizzle_shift(threadIdx.x & (n - 1));
   for (int h = threadIdx.x; h < n; h += blockDim.x) {
     uint32_t d[kDigits];
+    const int at = h + shift;
 #pragma unroll
     for (int lev = 0; lev < kLevels; ++lev) {
-      d[lev] = d0[lev * n + h];
-      d[kLevels + lev] = d1[lev * n + h];
+      d[lev] = d0[lev * n + at];
+      d[kLevels + lev] = d1[lev * n + at];
     }
 #pragma unroll
     for (int o = 0; o < kCols * kPlanes; ++o) {
@@ -143,7 +150,7 @@ __device__ void digit_products(uint32_t* x, const uint32_t* d0,
             key + (i * kRowPolys + col0 * kPlanes + o) * n + h;
         s += static_cast<uint64_t>(d[i]) * (kStaged ? *kp : __ldg(kp));
       }
-      x[o * n + h] = ntt64::reduce_sum<P>(s);
+      x[o * n + at] = ntt64::reduce_sum<P>(s);
     }
   }
   __syncthreads();
@@ -151,14 +158,15 @@ __device__ void digit_products(uint32_t* x, const uint32_t* d0,
 
 // sum_s W_s << 8s (mod 2^32) of local output row r, coefficient t: each W_s
 // rebuilt from its residues mod P0 (res0) and mod P1 (res1), u16 or u32
-// polys [rows * 4][n], by a centered Garner CRT.
+// polys [rows * 4][n], swizzled (t at word at = swizzle(t) of each poly), by
+// a centered Garner CRT.
 template <class T0, class T1>
 __device__ __forceinline__ uint32_t plane_sum(const T0* res0, const T1* res1,
-                                              int r, int t, int n) {
+                                              int r, int at, int n) {
   uint32_t sum = 0;
 #pragma unroll
   for (int s = 0; s < kPlanes; ++s) {
-    const int o = (r * kPlanes + s) * n + t;
+    const int o = (r * kPlanes + s) * n + at;
     uint32_t v = ntt64::crt_value(res0[o], res1[o]);
     if (v > kM / 2) v -= kM;  // centered: wraps to W_s mod 2^32
     sum += v << (8 * s);
@@ -197,6 +205,7 @@ blind_rotate32_kernel(const int32_t* __restrict__ acc_in,
   __syncthreads();
 
   const size_t prime_stride = static_cast<size_t>(kDigits) * kOut * n;
+  const int at_shift = ntt64::swizzle_shift(threadIdx.x & (n - 1));
   for (int j = 0; j < n_steps; ++j) {
     const int a = amounts[item * n_steps + j];
     const uint16_t* key = khat + 2 * prime_stride * j;
@@ -205,7 +214,8 @@ blind_rotate32_kernel(const int32_t* __restrict__ acc_in,
     external_product_mod<kP1>(x, acc, a, key + prime_stride, tw + 2 * n, n,
                               log_n);
     for (int idx = threadIdx.x; idx < kRows * n; idx += blockDim.x)
-      acc[idx] += plane_sum(res0, x, idx >> log_n, idx & (n - 1), n);
+      acc[idx] += plane_sum(res0, x, idx >> log_n,
+                            (idx & (n - 1)) + at_shift, n);
     __syncthreads();
   }
 
@@ -258,8 +268,8 @@ struct Spec {
   template <class T0, class T1>
   static __device__ __forceinline__ uint32_t crt_sum(const T0* res0,
                                                      const T1* res1, int r,
-                                                     int t, int n) {
-    return plane_sum(res0, res1, r, t, n);
+                                                     int at, int n) {
+    return plane_sum(res0, res1, r, at, n);
   }
 };
 

@@ -62,13 +62,14 @@
 // H100's 64 int32 lanes x 132 SMs x 1.98 GHz.  One item on one SM can use
 // 1/132 of that rate, and a request's batches are 5 to 40 items, so the
 // clusters spread an item over 4 SMs while the batch leaves them idle: at
-// B = 8 the 4-block body reaches about 5% of the bound (the one-block body
-// 1.8%); at B = 2048 the one-block body reaches about 29% of it.  The rest
-// goes to shared memory traffic and address arithmetic (9 instructions a
-// butterfly as compiled), bank conflicts in the passes of distance 16 and
-// below, the key's 2-byte loads from L2 in the pointwise products of the
-// 1- and 2-block bodies (a fifth of a step), and barriers; tensor-core
-// transforms are later work.
+// B = 8 the 4-block body reaches about 5.8% of the bound (12.4 ms; the
+// one-block body 2.0%); at B = 2048 the one-block body reaches about 32%
+// of it (577 ms).  The rest goes to shared memory traffic and address
+// arithmetic (9 instructions a butterfly as compiled), the key's 2-byte
+// loads from L2 in the pointwise products of the 1- and 2-block bodies (a
+// fifth of a step), and barriers; the transforms' work buffers are swizzled
+// (ntt64.cuh), so no pass has bank conflicts; tensor-core transforms
+// are later work.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -81,6 +82,7 @@ namespace {
 using namespace ntt64;
 
 constexpr int kThreads = 1024;
+static_assert(kThreads % 256 == 0, "ntt64.cuh: swizzle_shift");
 
 // round(v >> 41) mod 2^23 from the high word of v: (v >> 41) + bit 40.
 __device__ __forceinline__ uint32_t round_top(uint64_t v) {
@@ -89,12 +91,13 @@ __device__ __forceinline__ uint32_t round_top(uint64_t v) {
 }
 
 // Digit limbs of step amount a of the `rows` accumulator rows at acc, as
-// residues mod P: x[(r * 3 + la) * n + t].  Exact: numpy_ref.decompose(acc *
-// X^a - acc, 23, 1); rounded: numpy_ref.cmux_rounded's digit.  Limbs as
-// pbs.balanced_limbs_i32.
+// residues mod P: x[(r * 3 + la) * n + swizzle(t)].  Exact:
+// numpy_ref.decompose(acc * X^a - acc, 23, 1); rounded:
+// numpy_ref.cmux_rounded's digit.  Limbs as pbs.balanced_limbs_i32.
 template <uint32_t P, bool kRounded>
 __device__ void load_digits(uint32_t* x, const uint64_t* acc, int rows, int a,
                             int n, int log_n) {
+  const int shift = swizzle_shift(threadIdx.x & (n - 1));
   for (int idx = threadIdx.x; idx < rows * n; idx += blockDim.x) {
     const int r = idx >> log_n;
     const int t = idx & (n - 1);
@@ -110,9 +113,10 @@ __device__ void load_digits(uint32_t* x, const uint64_t* acc, int rows, int a,
     }
     int limb[kLimbs];
     digit_limbs(d, limb);
+    const int at = t + shift;
 #pragma unroll
     for (int la = 0; la < kLimbs; ++la)
-      x[(r * kLimbs + la) * n + t] = limb_residue<P>(limb[la]);
+      x[(r * kLimbs + la) * n + at] = limb_residue<P>(limb[la]);
   }
   __syncthreads();
 }
@@ -122,8 +126,10 @@ __device__ void load_digits(uint32_t* x, const uint64_t* acc, int rows, int a,
 template <bool kApprox>
 __device__ void crt_accumulate(uint64_t* acc, const uint16_t* res0,
                                const uint32_t* x, int n, int log_n) {
+  const int shift = swizzle_shift(threadIdx.x & (n - 1));
   for (int idx = threadIdx.x; idx < kRows * n; idx += blockDim.x)
-    acc[idx] += crt_sum<kApprox>(res0, x, idx >> log_n, idx & (n - 1), n);
+    acc[idx] += crt_sum<kApprox>(res0, x, idx >> log_n,
+                                 (idx & (n - 1)) + shift, n);
   __syncthreads();
 }
 

@@ -97,12 +97,48 @@ __device__ __forceinline__ uint32_t limb_residue(int limb) {
                   : static_cast<uint32_t>(limb);
 }
 
+// The layout of every buffer the transforms work on.  Coefficient t of a
+// poly lies at word swizzle(t) of it: inside each row of 32 words (one word
+// in each shared-memory bank) bits 2-4 of t are XORed with a key made from
+// bits 5-7, the row's place r among 8: bank b of the row holds coefficient
+// b ^ key(r), key(r) = 4 r ^ 24 r0 (bit 2 of the key is r0, bit 3 r0 ^ r1,
+// bit 4 r0 ^ r2).  So every warp-wide access of a pass is conflict-free
+// (tests/test_torch_ntt_banks.py holds each pass of each n to it): where a
+// warp's threads read the same place in 2 or 4 rows (a pass whose unit
+// distance is 8 or 16 words), the rows' keys send them to different banks,
+// and in the pass on neighbouring coefficients the 16-byte words of threads
+// t and t + 4 land in different halves of the 32 banks.
+// The key is linear, so swizzle(a ^ b) = swizzle(a) ^ swizzle(b), and it
+// moves no word out of its row or out of its aligned group of 4: a thread
+// that reads or writes elementwise, one word a coefficient, stays
+// conflict-free, and a copy of whole buffers keeps the layout.  The
+// transforms never see it: a reader or writer of coefficient t goes to
+// swizzle(t), the accumulator stays in natural order, and the key hats are
+// read from device memory at t.
+__host__ __device__ __forceinline__ constexpr int swizzle(int t) {
+  const int r4 = (t >> 3) & 28;
+  return t ^ r4 ^ ((r4 & 4) * 6);
+}
+
+// Every body runs 512 or 1024 threads, a multiple of 256, and its loops walk
+// indices threadIdx.x, + blockDim.x, ...: bits 0-7 of the index never change
+// along a thread's walk, and swizzle(t) - t depends on bits 2-7 of t alone.
+// So a thread finds the swizzle once, at the first coefficient t0 it meets,
+// and adds swizzle_shift(t0) to every coefficient of its walk.
+__device__ __forceinline__ int swizzle_shift(int t0) {
+  return swizzle(t0) - t0;
+}
+
 // The transforms run several radix-2 stages per pass over shared memory: a
 // thread takes E = 2^kS coefficients, a[q << log_u] for q < E, into
 // registers, runs the kS stages whose partners lie among them, and writes
 // them back, so the 11 stages of N = 2048 cost 4 passes and 4 barriers.
 // The pass over the stages of distance 4, 2 and 1 holds 8 neighbouring
-// coefficients and moves them as two 16-byte words.
+// coefficients and moves them as two 16-byte words.  A poly gives a pass
+// n >> kS work items, and a warp's threads all stay inside one poly while
+// there are at least 32 of them: in a warp that spans polys, the threads of
+// each poly would read the same places, and no layout of a poly could part
+// them.  So a pass takes at most log_n - 5 stages (splits below).
 //
 // The butterflies are lazy: residues are below 2^16 and words have 32 bits,
 // so nothing is reduced between stages.  A twiddle comes with its Shoup
@@ -113,32 +149,81 @@ __device__ __forceinline__ uint32_t limb_residue(int limb) {
 // bounds v.  The last pass reduces its outputs to [0, P).  All of it is
 // exact arithmetic mod P, so the result is that of a stage-by-stage
 // transform on reduced values.
+//
+// What bounds the passes: integer instructions, since no access has a bank
+// conflict.  tools/step_breakdown, K2's one-block body at B = 8 on an
+// H100, ms a stage of the step's transforms: the passes of 3 stages 1.92,
+// the pass of distances 16 and 8 2.25 (3.84 in the natural layout, where it
+// read the same 8 banks of 4 rows), the pass on neighbouring coefficients
+// 2.34 (2.76 with threads t and t + 4 on the same banks).  The pass of 2
+// stages does fewer stages a load and a store, and the neighbour pass
+// reduces mod P.
 
+// The word at byte offset b of x.
+__device__ __forceinline__ uint32_t& word(uint32_t* x, int b) {
+  return *reinterpret_cast<uint32_t*>(reinterpret_cast<char*>(x) + b);
+}
+
+// Coefficient q of a work item lies at byte b ^ off[q] of x, with b that of
+// its first coefficient and off[q] = 4 swizzle(q << log_u): one XOR an
+// access, where the natural layout adds an offset.
 template <int E, bool kContig>
-__device__ __forceinline__ void load_coeffs(uint32_t (&e)[E],
-                                            const uint32_t* a, int log_u) {
+__device__ __forceinline__ void load_coeffs(uint32_t (&e)[E], uint32_t* x,
+                                            int b, const int (&off)[E]) {
   if constexpr (kContig) {
     static_assert(E == 8, "two 16-byte words");
-    const uint4 lo = *reinterpret_cast<const uint4*>(a);
-    const uint4 hi = *reinterpret_cast<const uint4*>(a + 4);
+    const uint4 lo = reinterpret_cast<const uint4&>(word(x, b));
+    const uint4 hi = reinterpret_cast<const uint4&>(word(x, b ^ 16));
     e[0] = lo.x, e[1] = lo.y, e[2] = lo.z, e[3] = lo.w;
     e[4] = hi.x, e[5] = hi.y, e[6] = hi.z, e[7] = hi.w;
   } else {
 #pragma unroll
-    for (int q = 0; q < E; ++q) e[q] = a[q << log_u];
+    for (int q = 0; q < E; ++q) e[q] = word(x, b ^ off[q]);
   }
 }
 
 template <int E, bool kContig>
 __device__ __forceinline__ void store_coeffs(const uint32_t (&e)[E],
-                                             uint32_t* a, int log_u) {
+                                             uint32_t* x, int b,
+                                             const int (&off)[E]) {
   if constexpr (kContig) {
-    *reinterpret_cast<uint4*>(a) = make_uint4(e[0], e[1], e[2], e[3]);
-    *reinterpret_cast<uint4*>(a + 4) = make_uint4(e[4], e[5], e[6], e[7]);
+    reinterpret_cast<uint4&>(word(x, b)) = make_uint4(e[0], e[1], e[2], e[3]);
+    reinterpret_cast<uint4&>(word(x, b ^ 16)) =
+        make_uint4(e[4], e[5], e[6], e[7]);
   } else {
 #pragma unroll
-    for (int q = 0; q < E; ++q) a[q << log_u] = e[q];
+    for (int q = 0; q < E; ++q) word(x, b ^ off[q]) = e[q];
   }
+}
+
+// off[log_u][q] = 4 swizzle(q << log_u): the byte offsets of the 8
+// coefficients of a work item from its first at unit distance 2^log_u
+// (log_u <= 8 at n <= 2048), read by a pass once, from constant memory.
+struct UnitOffsets {
+  int off[9][8];
+};
+
+constexpr UnitOffsets unit_offsets_table() {
+  UnitOffsets table{};
+  for (int log_u = 0; log_u < 9; ++log_u)
+    for (int q = 0; q < 8; ++q)
+      table.off[log_u][q] = 4 * swizzle(q << log_u);
+  return table;
+}
+
+__constant__ UnitOffsets kUnitOffsets = unit_offsets_table();
+
+template <int E>
+__device__ __forceinline__ void unit_offsets(int (&off)[E], int log_u) {
+#pragma unroll
+  for (int q = 0; q < E; ++q) off[q] = kUnitOffsets.off[log_u][q];
+}
+
+// The first coefficient of work item w of a poly: its group of the pass,
+// w >> log_u, and its place in the group.
+template <int kS>
+__device__ __forceinline__ int first_coeff(int w, int log_u) {
+  return ((w >> log_u) << (log_u + kS)) + (w & ((1 << log_u) - 1));
 }
 
 // Stages s0 .. s0 + kS - 1 of the forward transform (Cooley-Tukey; stage s
@@ -153,13 +238,17 @@ __device__ __forceinline__ void fwd_pass(uint32_t* x, int npoly, int log_n,
   const int log_u = kContig ? 0 : log_n - s0 - kS;
   const int log_items = log_n - kS;  // work items per poly
   const int total = npoly << log_items;
+  int off[E];
+  unit_offsets(off, log_u);
+  const int shift = swizzle_shift(
+      first_coeff<kS>(threadIdx.x & ((1 << log_items) - 1), log_u));
   for (int idx = threadIdx.x; idx < total; idx += blockDim.x) {
     const int w = idx & ((1 << log_items) - 1);
     const int i = w >> log_u;  // the group of stage s0
-    uint32_t* a = x + ((idx >> log_items) << log_n) + (i << (log_u + kS)) +
-                  (w & ((1 << log_u) - 1));
+    const int b = 4 * (((idx >> log_items) << log_n) +
+                       first_coeff<kS>(w, log_u) + shift);
     uint32_t e[E];
-    load_coeffs<E, kContig>(e, a, log_u);
+    load_coeffs<E, kContig>(e, x, b, off);
 #pragma unroll
     for (int st = 0; st < kS; ++st) {
       const int half = E >> (st + 1);  // partner distance, in units
@@ -180,7 +269,7 @@ __device__ __forceinline__ void fwd_pass(uint32_t* x, int npoly, int log_n,
 #pragma unroll
       for (int q = 0; q < E; ++q) e[q] %= P;
     }
-    store_coeffs<E, kContig>(e, a, log_u);
+    store_coeffs<E, kContig>(e, x, b, off);
   }
   __syncthreads();
 }
@@ -197,13 +286,17 @@ __device__ __forceinline__ void inv_pass(
   const int log_u = kContig ? 0 : log_u_;
   const int log_items = log_n - kS;
   const int total = npoly << log_items;
+  int off[E];
+  unit_offsets(off, log_u);
+  const int shift = swizzle_shift(
+      first_coeff<kS>(threadIdx.x & ((1 << log_items) - 1), log_u));
   for (int idx = threadIdx.x; idx < total; idx += blockDim.x) {
     const int w = idx & ((1 << log_items) - 1);
     const int i = w >> log_u;  // the group of the pass's last stage
-    uint32_t* a = x + ((idx >> log_items) << log_n) + (i << (log_u + kS)) +
-                  (w & ((1 << log_u) - 1));
+    const int b = 4 * (((idx >> log_items) << log_n) +
+                       first_coeff<kS>(w, log_u) + shift);
     uint32_t e[E];
-    load_coeffs<E, kContig>(e, a, log_u);
+    load_coeffs<E, kContig>(e, x, b, off);
 #pragma unroll
     for (int st = 0; st < kS; ++st) {
       const int half = 1 << st;  // partner distance, in units
@@ -226,39 +319,66 @@ __device__ __forceinline__ void inv_pass(
 #pragma unroll
       for (int q = 0; q < E; ++q) e[q] %= P;
     }
-    store_coeffs<E, kContig>(e, a, log_u);
+    store_coeffs<E, kContig>(e, x, b, off);
   }
   __syncthreads();
 }
 
+// How the stages of distance 8 and above are split into passes: as many of
+// 3 stages as fit, then one of the 2 or 1 left over; at n = 128 two of 2 and
+// at n = 64 three of 1, so that a warp stays inside a poly.  Forward the
+// passes run in this order, inverse in the reverse order.
+struct Splits {
+  int threes, twos, ones;
+};
+
+__device__ __forceinline__ Splits splits(int log_n) {
+  const int stages = log_n - 3;
+  const int most = log_n - 5 < 3 ? log_n - 5 : 3;
+  const int threes = most == 3 ? stages / 3 : 0;
+  const int twos = most >= 2 ? (stages - 3 * threes) / 2 : 0;
+  return {threes, twos, stages - 3 * threes - 2 * twos};
+}
+
 // Forward negacyclic NTT of npoly polys in place: Cooley-Tukey, natural
 // order in, bit-reversed out; psi_rev[k] = psi^bitrev(k) with its Shoup
-// quotient.  n = 2^log_n, log_n >= 6: passes of 3 stages, one of the 1 or 2
-// left over, and the pass on neighbouring coefficients.  In and out: [0, P).
+// quotient.  n = 2^log_n, log_n >= 6: the passes of splits() and the pass
+// on neighbouring coefficients.  In and out: [0, P).
 template <uint32_t P>
 __device__ void ntt_fwd(uint32_t* x, int npoly, int log_n,
                         const uint2* __restrict__ psi_rev) {
-  const int last = log_n - 3;  // first stage of the last pass
+  const Splits sp = splits(log_n);
   int s = 0;
-  for (; s + 3 <= last; s += 3)
+  for (int k = 0; k < sp.threes; ++k, s += 3)
     fwd_pass<P, 3, false>(x, npoly, log_n, s, psi_rev);
-  if (last - s == 2) fwd_pass<P, 2, false>(x, npoly, log_n, s, psi_rev);
-  if (last - s == 1) fwd_pass<P, 1, false>(x, npoly, log_n, s, psi_rev);
-  fwd_pass<P, 3, true>(x, npoly, log_n, last, psi_rev);
+  for (int k = 0; k < sp.twos; ++k, s += 2)
+    fwd_pass<P, 2, false>(x, npoly, log_n, s, psi_rev);
+  for (int k = 0; k < sp.ones; ++k, s += 1)
+    fwd_pass<P, 1, false>(x, npoly, log_n, s, psi_rev);
+  fwd_pass<P, 3, true>(x, npoly, log_n, s, psi_rev);
 }
 
 // Inverse: Gentleman-Sande, bit-reversed in, natural out,
 // psi_inv_rev[k] = psi^-bitrev(k); no 1/N scaling (the key carries it).
-// The forward transform's passes in reverse.
+// The forward transform's passes in reverse; the last, of 3 stages from
+// n = 256 on, reduces its outputs (below, a pass of its own does).
 template <uint32_t P>
 __device__ void ntt_inv(uint32_t* x, int npoly, int log_n,
                         const uint2* __restrict__ psi_inv_rev) {
+  const Splits sp = splits(log_n);
   inv_pass<P, 3, true>(x, npoly, log_n, 0, psi_inv_rev);
   int log_u = 3;
-  const int left = (log_n - 3) % 3;
-  if (left == 2) inv_pass<P, 2, false>(x, npoly, log_n, log_u, psi_inv_rev);
-  if (left == 1) inv_pass<P, 1, false>(x, npoly, log_n, log_u, psi_inv_rev);
-  for (log_u += left; log_u + 3 < log_n; log_u += 3)
+  for (int k = 0; k < sp.ones; ++k, log_u += 1)
+    inv_pass<P, 1, false>(x, npoly, log_n, log_u, psi_inv_rev);
+  for (int k = 0; k < sp.twos; ++k, log_u += 2)
+    inv_pass<P, 2, false>(x, npoly, log_n, log_u, psi_inv_rev);
+  if (sp.threes == 0) {
+    for (int idx = threadIdx.x; idx < npoly << log_n; idx += blockDim.x)
+      x[idx] %= P;
+    __syncthreads();
+    return;
+  }
+  for (int k = 1; k < sp.threes; ++k, log_u += 3)
     inv_pass<P, 3, false>(x, npoly, log_n, log_u, psi_inv_rev);
   inv_pass<P, 3, false, true>(x, npoly, log_n, log_u, psi_inv_rev);
 }
@@ -266,22 +386,25 @@ __device__ void ntt_inv(uint32_t* x, int npoly, int log_n,
 // x[(col - col0) * kCount + s - kS0][h] = sum_r sum_{la + lb = s}
 // d_r[la][h] * key[r][col * 8 + lb][h] mod P for the kCols output rows from
 // col0, with d0 and d1 the transformed limb polys [3][n] of digit rows 0 and
-// 1.  d0 and d1 may lie inside x: each column h is read, then written, by
-// one thread only.  key: this step's and this prime's hats, u16 [R][16][n]
-// in device memory, or (kStaged) a copy of the kCols rows' polys in shared
-// memory, u16 [R][kCols * 8][n] with col0 = 0.
+// 1 (x, d0 and d1 swizzled, the key not).  d0 and d1 may lie inside x: each
+// column is read, then written, by one thread only.  key: this step's and
+// this prime's hats, u16 [R][16][n] in device memory, or (kStaged) a copy of
+// the kCols rows' polys in shared memory, u16 [R][kCols * 8][n] with
+// col0 = 0.
 template <uint32_t P, bool kApprox, int kCols, bool kStaged = false>
 __device__ void pointwise(uint32_t* x, const uint32_t* d0, const uint32_t* d1,
                           const uint16_t* __restrict__ key, int col0, int n) {
   using Pl = Planes<kApprox>;
   constexpr int kLb0 = Pl::kS0 > kLimbs - 1 ? Pl::kS0 - (kLimbs - 1) : 0;
   constexpr int kRowPolys = kStaged ? kCols * kKeyPlanes : kKeyPolys;
+  const int shift = swizzle_shift(threadIdx.x & (n - 1));
   for (int h = threadIdx.x; h < n; h += blockDim.x) {
     uint32_t d[kDigitPolys];
+    const int at = h + shift;
 #pragma unroll
     for (int la = 0; la < kLimbs; ++la) {
-      d[la] = d0[la * n + h];
-      d[kLimbs + la] = d1[la * n + h];
+      d[la] = d0[la * n + at];
+      d[kLimbs + la] = d1[la * n + at];
     }
     uint64_t out[kCols * Pl::kCount];  // each a sum of 6 products < 2^32
 #pragma unroll
@@ -307,14 +430,15 @@ __device__ void pointwise(uint32_t* x, const uint32_t* d0, const uint32_t* d1,
     }
 #pragma unroll
     for (int o = 0; o < kCols * Pl::kCount; ++o)
-      x[o * n + h] = reduce_sum<P>(out[o]);
+      x[o * n + at] = reduce_sum<P>(out[o]);
   }
   __syncthreads();
 }
 
-// The digit-limb polys (x[(r * 3 + la) * n + t] as residues mod P) through
-// the forward transforms, the pointwise products and the inverse
-// transforms: the product polys of one prime, natural order, in x.
+// The digit-limb polys (x[(r * 3 + la) * n + swizzle(t)] as residues mod P)
+// through the forward transforms, the pointwise products and the inverse
+// transforms: the product polys of one prime, in coefficient order and
+// swizzled, in x.
 template <uint32_t P, bool kApprox>
 __device__ void product_mod(uint32_t* x, const uint16_t* __restrict__ key,
                             const uint2* __restrict__ tw, int n,
@@ -338,22 +462,24 @@ __device__ __forceinline__ int64_t crt_centered(uint32_t r0, uint32_t r1) {
 
 // sum_s W_s << 8s (mod 2^64) of output row r, coefficient t: each W_s
 // rebuilt from its residues mod P0 (res0) and mod P1 (res1), u16 or u32
-// polys [rows * kCount][n].
+// polys [rows * kCount][n], swizzled: coefficient t at word at = swizzle(t)
+// of each poly.
 template <bool kApprox, class T0, class T1>
 __device__ __forceinline__ uint64_t crt_sum(const T0* res0, const T1* res1,
-                                            int r, int t, int n) {
+                                            int r, int at, int n) {
   using Pl = Planes<kApprox>;
   uint64_t sum = 0;
 #pragma unroll
   for (int i = 0; i < Pl::kCount; ++i) {
-    const int o = (r * Pl::kCount + i) * n + t;
+    const int o = (r * Pl::kCount + i) * n + at;
     sum += static_cast<uint64_t>(crt_centered(res0[o], res1[o]))
            << (8 * (i + Pl::kS0));
   }
   return sum;
 }
 
-// Keep the prime-P0 results (< 2^16) while x is reused for prime P1.
+// Keep the prime-P0 results (< 2^16) while x is reused for prime P1, in
+// x's layout.
 __device__ __forceinline__ void save_residues(uint16_t* res0,
                                               const uint32_t* x, int count) {
   for (int idx = threadIdx.x; idx < count; idx += blockDim.x)
@@ -394,8 +520,8 @@ struct ClusterProduct {
   template <class T0, class T1>
   static __device__ __forceinline__ uint64_t crt_sum(const T0* res0,
                                                      const T1* res1, int r,
-                                                     int t, int n) {
-    return ntt64::crt_sum<kApprox>(res0, res1, r, t, n);
+                                                     int at, int n) {
+    return ntt64::crt_sum<kApprox>(res0, res1, r, at, n);
   }
 };
 

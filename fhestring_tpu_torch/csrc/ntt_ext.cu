@@ -49,20 +49,22 @@ namespace {
 using namespace ntt64;
 
 constexpr int kThreads = 1024;
+static_assert(kThreads % 256 == 0, "ntt64.cuh: swizzle_shift");
 constexpr int kOut = Planes<false>::kOut;
 
 // `rows` digit rows of an item, given as their limbs src[la * limb_stride +
 // r * n + t] (dl from the item's first row on), as residues mod P at
-// x[(r * 3 + la) * n + t].
+// x[(r * 3 + la) * n + swizzle(t)].
 template <uint32_t P>
 __device__ void load_limbs(uint32_t* x, const int8_t* __restrict__ src,
                            int rows, size_t limb_stride, int n, int log_n) {
+  const int shift = swizzle_shift(threadIdx.x & (n - 1));
   for (int idx = threadIdx.x; idx < kLimbs * rows * n; idx += blockDim.x) {
     const int la = idx / (rows * n);
     const int rt = idx - la * rows * n;  // r * n + t
     const int r = rt >> log_n;
     const int t = rt & (n - 1);
-    x[(r * kLimbs + la) * n + t] =
+    x[(r * kLimbs + la) * n + t + shift] =
         limb_residue<P>(src[la * limb_stride + rt]);
   }
   __syncthreads();
@@ -87,9 +89,11 @@ ntt_ext_kernel(const int8_t* __restrict__ dl,
   product_mod<kP1, false>(x, khat + prime_stride, tw + 2 * n, n, log_n);
 
   uint64_t* dst = out + item * kRows * n;
+  const int shift = swizzle_shift(threadIdx.x & (n - 1));
   for (int idx = threadIdx.x; idx < kRows * n; idx += blockDim.x)
     dst[idx] = (accumulate ? dst[idx] : 0ull) +
-               crt_sum<false>(res0, x, idx >> log_n, idx & (n - 1), n);
+               crt_sum<false>(res0, x, idx >> log_n,
+                              (idx & (n - 1)) + shift, n);
 }
 
 // What the cluster bodies (rotate_cluster.cuh) take from this kernel: the

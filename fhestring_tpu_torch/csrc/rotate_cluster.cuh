@@ -56,12 +56,16 @@
 //                  S::step(source, item, row0, n, n_steps, j);
 //   S::digits<P>(x, acc, rows, step, n, log_n)   the limb polys of `rows`
 //                  accumulator rows as residues mod P at x[(r * 3 + l) * n
-//                  + t], block-wide;
+//                  + swizzle(t)], block-wide;
 //   S::pointwise<P, kCols>(x, d0, d1, key, col0, n)   the product polys of
 //                  kCols output rows from col0 at x[(c * kCount + i) * n +
-//                  h], block-wide; d0, d1: the hats of digit rows 0 and 1;
-//   S::crt_sum(res0, res1, r, t, n)   sum_s W_s << 8s of local row r from
-//                  the residues mod P0 and mod P1;
+//                  swizzle(h)], block-wide; d0, d1: the hats of digit rows 0
+//                  and 1;
+//   S::crt_sum(res0, res1, r, at, n)   sum_s W_s << 8s of local row r,
+//                  coefficient t, from the residues mod P0 and mod P1 at
+//                  word at = swizzle(t) of each poly (ntt64.cuh's swizzle is
+//                  the layout of x, of the hats and of the residues: the
+//                  copies between blocks move whole words and keep it);
 //   S::kStageRuns, kStageRunPolys, kStageRunStride   one output row's key
 //                  polys of a step and prime: that many runs of that many
 //                  polys, that many polys apart, the row's first at
@@ -93,6 +97,7 @@ using ntt64::kP1;
 using ntt64::kRows;
 
 constexpr int kThreads = 1024;
+static_assert(kThreads % 256 == 0, "ntt64.cuh: swizzle_shift");
 
 __device__ __forceinline__ void cluster_arrive() {
   asm volatile("barrier.cluster.arrive.release.aligned;" ::: "memory");
@@ -269,6 +274,7 @@ kernel(const typename S::Acc* acc_in, typename S::Acc* acc_out,
     __syncthreads();
   }
   const uint2* twp = tw + 2 * n * prime;
+  const int shift = ntt64::swizzle_shift(threadIdx.x & (n - 1));
   for (int j = 0; j < n_steps; ++j, key += step_stride) {
     const typename S::Step a = S::step(source, item, row0, n, n_steps, j);
     if (prime == 0)
@@ -282,9 +288,9 @@ kernel(const typename S::Acc* acc_in, typename S::Acc* acc_out,
     cluster_arrive();  // barrier R
     cluster_wait();
     for (int idx = threadIdx.x; idx < B::kMyRows * n; idx += blockDim.x) {
-      const int r = idx >> log_n, t = idx & (n - 1);
-      acc[idx] += prime == 0 ? S::crt_sum(x, res, r, t, n)
-                             : S::crt_sum(res, x, r, t, n);
+      const int r = idx >> log_n, at = (idx & (n - 1)) + shift;
+      acc[idx] += prime == 0 ? S::crt_sum(x, res, r, at, n)
+                             : S::crt_sum(res, x, r, at, n);
     }
     if (!B::kSplitRows) cluster_arrive();
     __syncthreads();

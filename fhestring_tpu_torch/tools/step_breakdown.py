@@ -92,7 +92,11 @@ def main() -> None:
             log = proc.communicate()[0]
             if proc.returncode:
                 raise RuntimeError(f"nvcc failed for {name}:\n{log}")
-            fn = ctypes.CDLL(lib).fhe_blind_rotate64
+            cdll = ctypes.CDLL(lib)
+            err = cdll.fhe_blind_rotate64_init()
+            if err:  # the bodies' shared memory above 48 KB
+                raise RuntimeError(f"init failed for {name}: {err}")
+            fn = cdll.fhe_blind_rotate64
             fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [
                 ctypes.c_void_p]
             row = [f"{name:28s}"]

@@ -254,8 +254,12 @@ def test_contains64_on_cuda_equals_cpu_in_the_same_mode(cuda, monkeypatch):
 # thread-block clusters of 2 and 4 blocks per item
 # ---------------------------------------------------------------------------
 
-BODY_SHAPES = [(1, 3, 64), (5, 4, 256), (33, 3, 256), (1, 3, 2048),
-               (5, 3, 2048), (33, 2, 2048)]
+# Every n where the transforms split their stages otherwise (ntt64.cuh:
+# splits): n = 64 and 128 run passes of 1 and 2 stages; from 128 on, the
+# swizzle of the work buffers uses bits 5 and 6 of a coefficient's index.
+BODY_SHAPES = [(1, 3, 64), (5, 3, 128), (5, 4, 256), (33, 3, 256),
+               (3, 3, 512), (3, 3, 1024), (1, 3, 2048), (5, 3, 2048),
+               (33, 2, 2048)]
 
 
 def _boundary_amounts(gen, B, n_steps, n):
