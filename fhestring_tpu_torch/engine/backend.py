@@ -12,7 +12,8 @@ Two implementations, as in the JAX package's ``engine/backend.py``:
 - FheBackend: real TFHE on torch tensors via RadixContext; every op lowers
   to batched PBS.  It runs eagerly: ``scan`` and ``scan_out`` are Python
   loops with ClearBackend.scan as the spec, where the JAX package traces a
-  ``lax.scan``.
+  ``lax.scan``; each is an ``engine.scan`` span and counts its steps in
+  ``metrics.GLOBAL.scan_steps``.
 """
 
 from __future__ import annotations
@@ -20,7 +21,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .. import torus
+from .. import metrics, torus
 from ..radix import NB, RadixContext
 from ..shortint import Blocks, ShortintContext
 
@@ -269,17 +270,21 @@ class FheBackend:
         """The engine's sequential hot loops as a Python loop: the spec is
         ClearBackend.scan.  Every step runs eagerly, so each PBS inside the
         body is dispatched, and counted, once per step."""
-        for i in range(length):
-            carry = body(carry, {k: v[i] for k, v in xs.items()})
+        metrics.GLOBAL.scan_steps += length
+        with metrics.span("engine.scan", steps=length):
+            for i in range(length):
+                carry = body(carry, {k: v[i] for k, v in xs.items()})
         return carry
 
     def scan_out(self, body, carry, xs: dict, length: int):
         """scan with the per-step Blocks outputs stacked along a new leading
         axis (the engine keeps their metadata constant with declare)."""
         ys = []
-        for i in range(length):
-            carry, y = body(carry, {k: v[i] for k, v in xs.items()})
-            ys.append(y)
+        metrics.GLOBAL.scan_steps += length
+        with metrics.span("engine.scan", steps=length):
+            for i in range(length):
+                carry, y = body(carry, {k: v[i] for k, v in xs.items()})
+                ys.append(y)
         return carry, Blocks(torch.stack([y.ct for y in ys]),
                              max(y.degree for y in ys),
                              max(y.noise_var for y in ys))

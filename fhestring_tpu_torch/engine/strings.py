@@ -13,7 +13,9 @@ batched tensor ops feeding wide PBS batches:
 
 Semantics (padding rules, 255 not-found sentinel, fixed split buffer grids,
 replacen counters, overlap masks — including the reference's quirks) match
-the reference exactly; every method cites its reference lines.
+the reference exactly, but for the forward split's overlap mask, which
+follows Rust's ``str`` where the reference does not (``_split_scan``);
+every method cites its reference lines.
 
 Engine values are raw backend tensors; the typed API lives in server.py.
 """
@@ -553,11 +555,21 @@ class StringEngine:
         stays O(L) (this is what makes the multi-chip dryrun compile:
         round 2 carried the full encrypted grid through every step).
 
-        Window geometry (the reference's literal quirks, kept bit-for-bit):
-        forward scan matches windows ENDING at i with the eq-mask read at
-        [i-m+1, i] but the ignore-mask WRITE at [i, i+m); reverse scan
-        matches windows STARTING at i (found only when i+m < L) with both
-        mask read and write at [i, i+m).
+        Window geometry: a match found at step i occupies the window that
+        ENDS at i, [i-m+1, i] (forward scan), or STARTS at i, [i, i+m)
+        (reverse scan, found only when i+m < L, the reference's literal
+        bound, which no match inside the string reaches).  Each step reads
+        the ignore mask and writes it over that same window, so a window
+        that overlaps an earlier match is skipped and an adjacent one is
+        not: Rust's leftmost non-overlapping matches forward (``split``,
+        ``split_terminator``, ``split_inclusive``, ``splitn``) and its
+        rightmost ones, searched from the end, in reverse (``rsplit`` and
+        its kin).  The reference crate's forward scan, and the JAX
+        package's, write the mask over [i, i+m) instead, which blocks the
+        next adjacent match and admits an overlapping one where the pattern
+        overlaps itself (``" bb bb      "`` split at ``"  "``); the port
+        follows Rust there on purpose.  The mask's positions are public, so
+        the bootstraps are the same either way.
         """
         b = self.b
         L = b.shape(s)[0]
@@ -570,18 +582,14 @@ class StringEngine:
         buffer_ids = b.trivial_chars(np.arange(L, dtype=np.uint8))
 
         order = np.arange(L - 1, -1, -1) if reverse else np.arange(L)
-        if reverse:
-            # windows start at i; literal `i + m >= L -> no match`
-            valid = (m > 0) and (m <= L)
-            valid_i = np.array([valid and (i + m < L) for i in order], np.uint8)
-            win_start = np.array([min(i, max(L - m, 0)) for i in order])
-        else:
-            valid = (m > 0) and (m <= L)
-            valid_i = np.array([valid and (i >= m - 1) for i in order], np.uint8)
-            win_start = np.array([min(max(i - m + 1, 0), max(L - m, 0))
-                                  for i in order])
+        start = order if reverse else order - m + 1   # the match's window
+        valid = (m > 0) and (m <= L)
+        valid_i = valid & ((order + m < L) if reverse else (start >= 0))
+        # equal to start wherever a match can be found; clamped elsewhere,
+        # where the step's write leaves the mask as it is
+        win_start = np.clip(start, 0, max(L - m, 0))
         xs = {"i": order.astype(np.int32),
-              "valid": valid_i,
+              "valid": valid_i.astype(np.uint8),
               "win_start": win_start.astype(np.int32)}
 
         ccb = b.declare(ccb, 3, 1.0)
@@ -612,11 +620,12 @@ class StringEngine:
                 vbit = b.trivial_bits_dyn(x["valid"])
                 found = b.and_(found, b.declare_bits(vbit, 1, 1.0))
 
-            # ignore-mask write over [i, i+m) intersect [0, L)
+            # ignore-mask write over the match's window
             if m > 0 and m <= L:
                 not_found = b.not_(found)
                 upd = b.and_(ignore, b.reshape_bits(not_found, (1,)))  # [L]
-                wmask = (positions >= i) & (positions < i + m)
+                ws = x["win_start"]
+                wmask = (positions >= ws) & (positions < ws + m)
                 ignore = b.select_pmask_bits(wmask, upd, ignore)
             global_found = b.or_(global_found, found)
 

@@ -7,9 +7,12 @@ the one chokepoint every LUT evaluation passes through
 them:
 
 - ``GLOBAL``: always-on tallies, plain Python ints incremented where the
-  work is issued: PBS dispatches and their logical and padded widths, and
-  the blocking copies of plain data onto the server's device
-  (``host_copies``, counted by ``torus.to_device``);
+  work is issued: PBS dispatches and their logical and padded widths, the
+  blocking copies of plain data onto the server's device
+  (``host_copies``, counted by ``torus.to_device``), and the steps of the
+  engine's scans (``scan_steps``, counted by ``FheBackend.scan`` and
+  ``scan_out``: the length of the chain of dependent steps a request
+  carries);
 - a span recorder, off by default.  ``record_spans(True)`` turns it on and
   ``record_spans(False)`` off.  While on, each ``with span(name):`` block
   appends one ``Span`` to ``spans()``; while off, ``span`` checks one flag
@@ -22,8 +25,9 @@ and ``client.decode`` (``service.RemoteServerKey``); ``service.receive``,
 ``FheStringServer`` handler); ``server.<method>`` (one per public
 ``ServerKey`` call; on the card it ends with a ``sync`` span, a synchronise
 of the device, so that it holds the method's device work);
-``pbs.dispatch`` with its logical ``width`` (one per batch that reaches
-``pbs_batch``); ``copy`` (each ``torus.to_device``).
+``engine.scan`` with its ``steps`` (one per ``FheBackend.scan`` or
+``scan_out``); ``pbs.dispatch`` with its logical ``width`` (one per batch
+that reaches ``pbs_batch``); ``copy`` (each ``torus.to_device``).
 A span's ``parent`` is the innermost span open on the same thread; its
 ``request`` is shared by every span of one request, on the client's thread
 and the server's: the client sends its id in the request's header and the
@@ -53,6 +57,7 @@ class Counters:
     pbs_items: int = 0        # sum of logical (unpadded) batch sizes
     pbs_items_padded: int = 0  # sum of padded batch sizes actually executed
     host_copies: int = 0      # blocking copies of plain data to the device
+    scan_steps: int = 0       # steps of the engine's scans (FheBackend)
 
     def snapshot(self) -> "Counters":
         return dataclasses.replace(self)
@@ -147,12 +152,16 @@ class _Open:
         return False
 
 
-def span(name: str, width: int | None = None):
+def span(name: str, width: int | None = None, steps: int | None = None):
     """A context manager that records ``name`` while the recorder is on;
-    ``width`` (a PBS batch's logical items) goes into the span's attrs."""
+    ``width`` (a PBS batch's logical items) and ``steps`` (a scan's) go
+    into the span's attrs."""
     if not _on:
         return _OFF
-    return _Open(name, {} if width is None else {"width": int(width)})
+    attrs = {} if width is None else {"width": int(width)}
+    if steps is not None:
+        attrs["steps"] = int(steps)
+    return _Open(name, attrs)
 
 
 class _Request:

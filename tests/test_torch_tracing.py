@@ -1,6 +1,7 @@
-"""The port's span recorder and its ``host_copies`` counter (metrics.py),
-and the spans the service, the server, the PBS dispatch and the copies of
-plain data onto the device record.
+"""The port's span recorder and its ``host_copies`` and ``scan_steps``
+counters (metrics.py), and the spans the service, the server, the
+engine's scans, the PBS dispatch and the copies of plain data onto the
+device record.
 
 On the CPU at PARAM_TEST_ZERO_NOISE.  Where bits do not matter the
 bootstrap is the identity (the engine never branches on ciphertext values,
@@ -262,6 +263,33 @@ def test_dispatch_spans_match_pbs_counters(keys, identity_pbs, method):
     top, = [s for s in rec if s.parent is None]
     assert top.name == f"server.{method}"
     assert len(_by_name(rec, "copy")) == metrics.GLOBAL.host_copies
+
+
+@pytest.mark.parametrize("recording", [True, False])
+def test_a_split_records_one_scan_and_counts_its_steps(keys, identity_pbs,
+                                                      recording):
+    """split_clear runs one engine scan over the padded string and the NUL
+    it pushes: one engine.scan span, inside the method, whose steps are
+    the scan_steps it adds; with the recorder off only the counter."""
+    ck, srv = keys
+    s = ck.encrypt("hello", 1)
+    before = metrics.GLOBAL.scan_steps
+    metrics.record_spans(recording)
+    srv.split_clear(s, "l")
+    metrics.record_spans(False)
+    steps = len(s) + 1
+    assert metrics.GLOBAL.scan_steps - before == steps == 7
+    rec = metrics.spans()
+    if not recording:
+        assert rec == []
+        return
+    scan, = _by_name(rec, "engine.scan")
+    method, = _by_name(rec, "server.split_clear")
+    assert scan.attrs == {"steps": steps} and scan.parent == method.id
+    inside = [d for d in _by_name(rec, "pbs.dispatch")
+              if d.parent == scan.id]
+    assert inside and all(scan.t0_ns <= d.t0_ns <= d.t1_ns <= scan.t1_ns
+                          for d in inside)
 
 
 @pytest.mark.parametrize("method", sorted(METHODS))
