@@ -13,7 +13,7 @@ The turbo set PARAM_MESSAGE_2_CARRY_2_KS_PBS_32 (n=742, N=2048, k=1,
 gadget 2^8 x 3; kernel blind_rotate32):
 
 3. turbo keygen (native C++) and key packing onto the card;
-4. every body of the kernel (1 block per item, and clusters of 2 and 4
+4. every body of the kernel (1 block per item, and clusters of 2, 4 and 8
    blocks per item) against one run of its plain PyTorch version at B=8 on
    the turbo key, bit-exact, each timed; then a sweep over the batches of
    ROTATION_SWEEP_B, either side of each switch of the wrapper's pick:
@@ -225,9 +225,9 @@ NOISE_SAMPLES = 16384  # PARAM_PROD bootstraps of phase 23
 RANKS_TIMEOUT = 600.0  # seconds a spawn of ranks may take (phase 22)
 # Batches of the whole-rotation kernels' sweep (phases 4 and 9): either side
 # of each switch of the pick at N=2048 on an H100 (132 SMs; 66 clusters of
-# 2 and 30 of 4 run at once), and 5, the usual batch of Eq.
-ROTATION_SWEEP_B = (1, 5, 30, 31, 33, 66, 67, 90, 91, 132, 133, 150, 151,
-                    198, 199)
+# 2, 30 of 4 and 15 of 8 run at once), and 5, the usual batch of Eq.
+ROTATION_SWEEP_B = (1, 5, 15, 16, 30, 31, 33, 66, 67, 90, 91, 132, 133, 150,
+                    151, 198, 199)
 PLAIN_SWEEP_B = (1, 5, 33)  # of those, the batches the plain version runs
 PICK_SPREAD = 1.006  # run-to-run spread of a kernel time (PERF.md)
 # What bounds a kernel on an H100: int32 instructions a second (64 lanes an
@@ -557,7 +557,6 @@ def stepwise_kernels(dkeys, phase, steps=4, batch=8):
     from fhestring_tpu_torch.crypto.kernels import ext_product as ep
     from fhestring_tpu_torch.crypto.kernels import ntt_ext as ne
     from fhestring_tpu_torch.crypto.kernels import rotate_decompose as rd
-    from fhestring_tpu_torch.crypto.kernels.cluster import CLUSTERS
     from fhestring_tpu_torch.tools import graph_ms, wall_ms
 
     dev = dkeys.bsk_limbs.device
@@ -611,7 +610,7 @@ def stepwise_kernels(dkeys, phase, steps=4, batch=8):
             outs[name] = got
         if not torch.equal(outs["ext_product"], outs["ntt_ext"]):
             fail(f"ext_product and ntt_ext differ at step {j}")
-        for c in CLUSTERS:      # every body of K4, fresh and accumulating
+        for c in ne.CLUSTERS:   # every body of K4, fresh and accumulating
             fresh = ne.ntt_ext(dl, khat, cluster=c)
             added = ne.ntt_ext(dl, khat, out=acc.clone(), accumulate=True,
                                cluster=c)
@@ -668,7 +667,6 @@ def stepwise_batches(dkeys, phase):
     from fhestring_tpu_torch.crypto.kernels import ext_product as ep
     from fhestring_tpu_torch.crypto.kernels import ntt_ext as ne
     from fhestring_tpu_torch.crypto.kernels import rotate_decompose as rd
-    from fhestring_tpu_torch.crypto.kernels.cluster import CLUSTERS
 
     dev = dkeys.bsk_limbs.device
     N = dkeys.params.polynomial_size
@@ -693,7 +691,7 @@ def stepwise_batches(dkeys, phase):
             got[f"ext_product{body}"] = ep.ext_product(dl, limbs, body=body)
             got[f"ext_product{body} accumulating"] = ep.ext_product(
                 dl, limbs, out=acc.clone(), accumulate=True, body=body) - acc
-        for c in CLUSTERS:
+        for c in ne.CLUSTERS:
             got[f"ntt_ext<{c}>"] = ne.ntt_ext(dl, khat, cluster=c)
             got[f"ntt_ext<{c}> accumulating"] = ne.ntt_ext(
                 dl, khat, out=acc.clone(), accumulate=True, cluster=c) - acc

@@ -30,10 +30,15 @@ shared memory for all n steps.  What bounds it on an H100 is integer
 instructions on the CUDA cores (28 transforms of length N and 196,608
 multiply-adds a step; the key, 393 KB a step, comes through L2 and is far
 from binding), and one item on one SM reaches 1/132 of the card's rate.
-So the kernel has three bodies with the same bits (``cluster.py``): one
-block per item, and a thread-block cluster of 2 or 4 blocks per item that
-splits the step by prime, or by prime and output row, and exchanges the
-parts through distributed shared memory.  ``cluster_size`` picks the body
+So the kernel has four bodies with the same bits (``cluster.py``): one
+block per item, and a thread-block cluster of 2, 4 or 8 blocks per item
+that splits the step by prime, by prime and output row, or by prime,
+output row and half of the row's 4 product planes, and exchanges the parts
+through distributed shared memory (``csrc/rotate_cluster.cuh`` says which
+block stores what into which, and why two cluster barriers a step order it
+at every size).  The 8-block body runs an item's step on twice the SMs of
+the 4-block body for the batches of up to one wave of 8-clusters (about 16
+on an H100).  ``cluster_size`` picks the body
 from the batch and the card; ``cluster=`` forces one.  The source says what
 share of the bound each reaches.
 
@@ -52,14 +57,16 @@ from .. import ntt
 from ..keys import KEY_PLANES
 from . import cuda_build
 from . import cluster as _cluster
-from .cluster import CLUSTERS, WaveCost, check_cluster
+from .cluster import WaveCost
 
 BASE_LOG = 8
 LEVELS = 3
 GLWE_ROWS = 2  # k + 1
 # One wave of each body relative to the one-block body's, measured on an
 # H100 at N = 2048 (PERF.md); every mode of the kernel is within 5% of it.
-WAVE_COST = WaveCost(one_block=(1.0, 1.76), cluster={2: 0.539, 4: 0.302})
+WAVE_COST = WaveCost(one_block=(1.0, 1.76),
+                     cluster={2: 0.539, 4: 0.302, 8: 0.257})
+CLUSTERS = _cluster.bodies(WAVE_COST)  # blocks per item of each body
 
 _VP = ctypes.c_void_p
 _INT = ctypes.c_int
@@ -159,6 +166,11 @@ def blind_rotate32_plain(acc_hi: torch.Tensor, amounts: torch.Tensor,
         w = w.view(B, kp1, KEY_PLANES, N) << shifts.view(1, 1, -1, 1)
         acc = (acc + w.sum(dim=2)) & 0xFFFFFFFF
     return torch.where(acc >= 1 << 31, acc - (1 << 32), acc).to(torch.int32)
+
+
+def check_cluster(cluster) -> None:
+    """Raise unless ``cluster`` is None (pick) or one of ``CLUSTERS``."""
+    _cluster.check_cluster(cluster, WAVE_COST)
 
 
 def cluster_size(batch: int, sms: int, n: int, occupancy=None) -> int:

@@ -41,12 +41,18 @@ instructions on the CUDA cores (per prime 6 forward and 16 inverse
 transforms of length N in exact mode, 6 and 10 in approx mode; the key,
 256 KB a step or 224 KB in approx mode, which never reads the key's limb 0,
 comes through L2 and is far from binding), and one item on one SM reaches
-1/132 of the card's rate.  So the kernel has three bodies with the same
-bits (``cluster.py``): one block per item, and a thread-block cluster of 2
-or 4 blocks per item that splits the step by prime, or by prime and output
-row, and exchanges the parts through distributed shared memory.
-``cluster_size`` picks the body from the batch and the card; ``cluster=``
-forces one.  The source says what share of the bound each reaches.
+1/132 of the card's rate.  So the kernel has four bodies with the same
+bits (``cluster.py``): one block per item, and a thread-block cluster of 2,
+4 or 8 blocks per item that splits the step by prime, by prime and output
+row, or by prime, output row and half of the row's product planes (3 + 2
+in approx mode, 4 + 4 in exact mode), and exchanges the parts through
+distributed shared memory (``csrc/rotate_cluster.cuh`` says which block
+stores what into which, and why two cluster barriers a step order it at
+every size).  The 8-block body runs an item's step on twice the SMs of the
+4-block body for the batches of up to one wave of 8-clusters (about 16 on
+an H100).  ``cluster_size`` picks the body from the batch and the card;
+``cluster=`` forces one.  The source says what share of the bound each
+reaches.
 
 On a CPU tensor the wrapper runs the plain version; on a CUDA tensor it
 launches the kernel or raises.
@@ -64,7 +70,7 @@ from .. import ntt
 from ..keys import KEY_PLANES64
 from . import cuda_build
 from . import cluster as _cluster
-from .cluster import CLUSTERS, WaveCost, check_cluster
+from .cluster import WaveCost
 
 BASE_LOG = 23
 LEVELS = 1
@@ -73,7 +79,9 @@ DIGIT_LIMBS = 3  # balanced int8 limbs of a digit: (BASE_LOG + 8) // 8
 APPROX_MIN_SHIFT = 3  # approx mode drops shift planes s < 3
 # One wave of each body relative to the one-block body's, measured on an
 # H100 at N = 2048 (PERF.md); every mode of the kernel is within 5% of it.
-WAVE_COST = WaveCost(one_block=(1.0, 2.0), cluster={2: 0.575, 4: 0.342})
+WAVE_COST = WaveCost(one_block=(1.0, 2.0),
+                     cluster={2: 0.575, 4: 0.342, 8: 0.290})
+CLUSTERS = _cluster.bodies(WAVE_COST)  # blocks per item of each body
 
 _SHIFT = 64 - BASE_LOG
 _MASK = (1 << BASE_LOG) - 1
@@ -211,6 +219,11 @@ def blind_rotate64_plain(acc: torch.Tensor, amounts: torch.Tensor,
         acc = torus.add(acc, ext_product_ntt(_limbs(d), khat[j],
                                              approx=approx))
     return acc
+
+
+def check_cluster(cluster) -> None:
+    """Raise unless ``cluster`` is None (pick) or one of ``CLUSTERS``."""
+    _cluster.check_cluster(cluster, WAVE_COST)
 
 
 def cluster_size(batch: int, sms: int, n: int, occupancy=None) -> int:

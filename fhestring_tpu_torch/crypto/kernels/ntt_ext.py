@@ -19,8 +19,8 @@ each plane W_s, exact since |W_s| <= 2.01e8 < M/2 (``blind_rotate64``);
 ext = sum_s W_s << 8s.
 
 The kernel (``csrc/ntt_ext.cu``) shares its device code with
-``csrc/blind_rotate64.cu`` (``csrc/ntt64.cuh``) and has that kernel's three
-bodies with the same bits: one block of 1,024 threads per item, or a
+``csrc/blind_rotate64.cu`` (``csrc/ntt64.cuh``) and has three of that
+kernel's bodies with the same bits: one block of 1,024 threads per item, or a
 thread-block cluster of 2 or 4 blocks per item (``csrc/rotate_cluster.cuh``
 run for a single step: split by prime, or by prime and output row), so that
 a batch of a few items uses 2 or 4 times as many SMs.  ``cluster=`` forces a
@@ -49,11 +49,12 @@ from ..keys import KEY_PLANES64
 from . import blind_rotate64 as br64
 from . import cluster as _cluster
 from . import cuda_build
-from .cluster import CLUSTERS, WaveCost, check_cluster
+from .cluster import WaveCost
 
 # One wave of each body relative to the one-block body's, measured on an
 # H100 at N = 2048 (PERF.md, ``tools/stepwise_sweep``).
 WAVE_COST = WaveCost(one_block=(1.0, 2.0), cluster={2: 0.605, 4: 0.350})
+CLUSTERS = _cluster.bodies(WAVE_COST)  # blocks per item of each body
 _VP = ctypes.c_void_p
 _INT = ctypes.c_int
 _FUNCTIONS = {"fhe_ntt_ext": ([_VP, _VP, _VP, _VP, _INT, _INT, _INT, _INT,
@@ -83,6 +84,11 @@ def prepare(device: torch.device, n: int) -> None:
     ntt.kernel_twiddles(n, str(device))
     for c in CLUSTERS[1:]:
         max_active_clusters(device.index, c, n)
+
+
+def check_cluster(cluster) -> None:
+    """Raise unless ``cluster`` is None (pick) or one of ``CLUSTERS``."""
+    _cluster.check_cluster(cluster, WAVE_COST)
 
 
 def _check(dl: torch.Tensor, khat_j: torch.Tensor) -> None:

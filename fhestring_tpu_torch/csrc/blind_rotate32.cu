@@ -31,12 +31,13 @@
 //     buffer of 8 polys for the digit hats and then the products 64 KB, the
 //     prime-40961 residues as u16 32 KB: 112 KB, two blocks an SM), the
 //     primes in turn;
-//   a thread-block cluster of 2 or 4 blocks per item (rotate_cluster.cuh;
-//     1,024 threads a block), split by prime, or by prime and output row:
-//     14 or 7 of the step's 28 transforms a block, the parts exchanged
-//     through distributed shared memory; the 4-block body also holds its
-//     96 KB quarter of a step's key, copied in a step ahead (176 KB a
-//     block).
+//   a thread-block cluster of 2, 4 or 8 blocks per item
+//     (rotate_cluster.cuh; 1,024 threads a block), split by prime, by prime
+//     and output row, or by prime, output row and half of the row's 4
+//     product planes: 14, 7 or 3-4 of the step's 28 transforms a block,
+//     the parts exchanged through distributed shared memory; the 4- and
+//     8-block bodies also hold their quarter or eighth of a step's key, 96
+//     or 48 KB, copied in a step ahead (176 or 160 KB a block).
 //
 // The transforms, the CRT and the cluster bodies are shared with the 64-bit
 // kernels (ntt64.cuh, rotate_cluster.cuh).  The key hats arrive with 1/N
@@ -50,9 +51,10 @@
 // instructions an item-step at the least, 0.63 ms for B = 8 and 161 ms for
 // B = 2048 at an H100's 64 int32 lanes x 132 SMs x 1.98 GHz.  One item on
 // one SM can use 1/132 of that rate, and a request's batches are 5 to 40
-// items, so the clusters spread an item over 4 SMs while the batch leaves
-// them idle: at B = 8 the 4-block body reaches about 5.6% of the bound
-// (11.3 ms; the one-block body 1.7%); at B = 2048 the one-block body
+// items, so the clusters spread an item over up to 8 SMs while the batch
+// leaves them idle: at B = 8 the 8-block body reaches about 6.7% of the
+// bound (9.34 ms; the 4-block body 5.6%, the one-block body 1.7%); at
+// B = 2048 the one-block body
 // reaches about 35% of it (455 ms).  The rest goes to shared memory
 // traffic and address arithmetic (9 instructions a butterfly as compiled)
 // and barriers; the transforms' work buffers are swizzled (ntt64.cuh), so
@@ -118,20 +120,21 @@ __device__ void load_digits(uint32_t* x, const uint32_t* acc, int rows, int a,
   __syncthreads();
 }
 
-// x[(col - col0) * 4 + s][h] = sum_i d_i[h] * key[i][col * 4 + s][h] mod P
-// for the 4 product planes s of each of the kCols output rows from col0,
+// x[(col - col0) * kNum + s][h] = sum_i d_i[h] * key[i][col * 4 + s][h]
+// mod P for the planes s < kNum of each of the kCols output rows from col0,
 // with d0 and d1 the transformed digit polys [3][n] of accumulator rows 0
 // and 1 (x, d0 and d1 swizzled, the key not).  d0 and d1 may lie inside x:
 // each column is read, then written, by one thread only.  key: this step's
 // and this prime's hats, u16 [R][8][n] in device memory, or (kStaged) a
-// copy of the kCols rows' polys in shared memory, u16 [R][kCols * 4][n]
-// with col0 = 0.
-template <uint32_t P, int kCols, bool kStaged = false>
+// copy of kNum planes of each of the kCols rows in shared memory,
+// u16 [R][kCols * kNum][n] with col0 = 0.  kNum < 4 only staged.
+template <uint32_t P, int kCols, bool kStaged = false, int kNum = kPlanes>
 __device__ void digit_products(uint32_t* x, const uint32_t* d0,
                                const uint32_t* d1,
                                const uint16_t* __restrict__ key, int col0,
                                int n) {
-  constexpr int kRowPolys = kStaged ? kCols * kPlanes : kOut;
+  static_assert(kStaged || kNum == kPlanes, "a part of the planes: staged");
+  constexpr int kRowPolys = kStaged ? kCols * kNum : kOut;
   const int shift = ntt64::swizzle_shift(threadIdx.x & (n - 1));
   for (int h = threadIdx.x; h < n; h += blockDim.x) {
     uint32_t d[kDigits];
@@ -142,7 +145,7 @@ __device__ void digit_products(uint32_t* x, const uint32_t* d0,
       d[kLevels + lev] = d1[lev * n + at];
     }
 #pragma unroll
-    for (int o = 0; o < kCols * kPlanes; ++o) {
+    for (int o = 0; o < kCols * kNum; ++o) {
       uint64_t s = 0;  // 6 products < 2^32
 #pragma unroll
       for (int i = 0; i < kDigits; ++i) {
@@ -265,6 +268,25 @@ struct Spec {
     digit_products<P, 1, true>(x, d0, d1, staged, 0, n);
   }
 
+  // The 8-block body splits an output row's 4 planes in two halves of 2;
+  // plane s reads key plane s alone, so a half stages its own 2 polys of
+  // each run.
+  template <int kHalf>
+  struct Half {
+    static constexpr int kFirst = 2 * kHalf;
+    static constexpr int kPlanes = 2;
+    static constexpr int kRunFirst = kFirst;
+    static constexpr int kRunPolys = kPlanes;
+  };
+
+  template <uint32_t P, int kHalf>
+  static __device__ void pointwise_half(uint32_t* x, const uint32_t* d0,
+                                        const uint32_t* d1,
+                                        const uint16_t* staged, int n) {
+    digit_products<P, 1, true, Half<kHalf>::kPlanes>(x, d0, d1, staged, 0,
+                                                      n);
+  }
+
   template <class T0, class T1>
   static __device__ __forceinline__ uint32_t crt_sum(const T0* res0,
                                                      const T1* res1, int r,
@@ -281,7 +303,7 @@ constexpr size_t smem_bytes(int n) {
 
 bool valid(int n, int cluster) {
   return n >= 64 && n <= 2048 && !(n & (n - 1)) &&
-         (cluster == 1 || cluster == 2 || cluster == 4);
+         (cluster == 1 || cluster == 2 || cluster == 4 || cluster == 8);
 }
 
 }  // namespace
@@ -296,13 +318,15 @@ extern "C" int fhe_blind_rotate32_init() {
     err = rotate_cluster::allow_shared_memory<Spec, 2>(2048);
   if (err == cudaSuccess)
     err = rotate_cluster::allow_shared_memory<Spec, 4>(2048);
+  if (err == cudaSuccess)
+    err = rotate_cluster::allow_shared_memory<Spec, 8>(2048);
   return static_cast<int>(err);
 }
 
 // acc_in, acc_out: int32 [batch, 2, n]; amounts: int32 [batch, n_steps];
 // khat: u16 [n_steps, 2, 6, 8, n]; tw: u32 [2 primes, 2 (fwd, inv), n,
 // 2 (twiddle, its Shoup quotient)] (ntt.kernel_twiddles);
-// cluster: blocks per item, 1, 2 or 4.  Launches on `stream`; returns the
+// cluster: blocks per item, 1, 2, 4 or 8.  Launches on `stream`; returns the
 // cudaError_t of the launch.
 extern "C" int fhe_blind_rotate32(const void* acc_in, void* acc_out,
                                   const void* amounts, const void* khat,
@@ -321,6 +345,10 @@ extern "C" int fhe_blind_rotate32(const void* acc_in, void* acc_out,
     return rotate_cluster::launch<Spec, 4>(
         acc_in, acc_out, static_cast<const int32_t*>(amounts), khat, tw,
         batch, n_steps, n, log_n, s);
+  if (cluster == 8)
+    return rotate_cluster::launch<Spec, 8>(
+        acc_in, acc_out, static_cast<const int32_t*>(amounts), khat, tw,
+        batch, n_steps, n, log_n, s);
   if (batch == 0) return 0;
   const size_t smem = smem_bytes(n);
   blind_rotate32_kernel<<<batch, kThreads, smem, s>>>(
@@ -331,13 +359,14 @@ extern "C" int fhe_blind_rotate32(const void* acc_in, void* acc_out,
   return static_cast<int>(cudaGetLastError());
 }
 
-// How many clusters of the body (cluster = 2 or 4) the current device runs
+// How many clusters of the body (cluster = 2, 4 or 8) the current device runs
 // at once at this n, or minus the cudaError_t.
 extern "C" int fhe_blind_rotate32_max_clusters(int n, int cluster) {
   if (!valid(n, cluster) || cluster == 1)
     return -static_cast<int>(cudaErrorInvalidValue);
-  return cluster == 2 ? rotate_cluster::max_active_clusters<Spec, 2>(n)
-                      : rotate_cluster::max_active_clusters<Spec, 4>(n);
+  return cluster == 2   ? rotate_cluster::max_active_clusters<Spec, 2>(n)
+         : cluster == 4 ? rotate_cluster::max_active_clusters<Spec, 4>(n)
+                        : rotate_cluster::max_active_clusters<Spec, 8>(n);
 }
 
 extern "C" const char* fhe_cuda_error_string(int err) {

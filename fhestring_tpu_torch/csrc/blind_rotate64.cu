@@ -39,13 +39,15 @@
 //     prime-40961 residues as u16 2 P N bytes: 224 KB exact, 229,376 of
 //     the 232,448 bytes a block may use, 152 KB approx; one block an SM),
 //     the primes in turn;
-//   a thread-block cluster of 2 or 4 blocks per item (rotate_cluster.cuh),
-//     split by prime, or by prime and output row: 16 or 8 of the production
-//     mode's 32 transforms a block (22 or 11 of the exact mode's 44), the
-//     parts exchanged through distributed shared memory; 152 or 164 KB a
-//     block in the production mode, 224 or 200 KB in the exact mode: the
-//     4-block body also holds its 64 KB quarter of a step's key, copied in
-//     a step ahead.
+//   a thread-block cluster of 2, 4 or 8 blocks per item
+//     (rotate_cluster.cuh), split by prime, by prime and output row, or by
+//     prime, output row and half of the row's product planes: 16, 8 or 4
+//     of the production mode's 32 transforms a block (22, 11 or 5-6 of the
+//     exact mode's 44), the parts exchanged through distributed shared
+//     memory; 152, 164 or 168 KB a block in the production mode, 224, 200
+//     or 208 KB in the exact mode: the 4- and 8-block bodies also hold
+//     their slice of a step's key (64 KB; at 8 the 32-48 KB of key limbs
+//     their planes read), copied in a step ahead.
 //
 // The transforms, the pointwise products and the CRT are in ntt64.cuh,
 // shared with the one-step external product ntt_ext.cu.  The key hats
@@ -61,11 +63,13 @@
 // least (exact: 2.8e6), 0.73 ms for B = 8 and 186 ms for B = 2048 at an
 // H100's 64 int32 lanes x 132 SMs x 1.98 GHz.  One item on one SM can use
 // 1/132 of that rate, and a request's batches are 5 to 40 items, so the
-// clusters spread an item over 4 SMs while the batch leaves them idle: at
-// B = 8 the 4-block body reaches about 5.8% of the bound (12.4 ms; the
-// one-block body 2.0%); at B = 2048 the one-block body reaches about 32%
-// of it (577 ms).  The rest goes to shared memory traffic and address
-// arithmetic (9 instructions a butterfly as compiled), the key's 2-byte
+// clusters spread an item over up to 8 SMs while the batch leaves them
+// idle: at B = 8 the 8-block body reaches about 6.9% of the bound
+// (10.55 ms; the 4-block body 5.8%, the one-block body 2.0%); at B = 2048
+// the one-block body reaches about 32% of it (580 ms).  The rest goes to
+// shared memory traffic and address arithmetic (9 instructions a butterfly
+// as compiled), in the 8-block body the stores into its peers and the
+// step's parts that do not split, the key's 2-byte
 // loads from L2 in the pointwise products of the 1- and 2-block bodies (a
 // fifth of a step), and barriers; the transforms' work buffers are swizzled
 // (ntt64.cuh), so no pass has bank conflicts; tensor-core transforms
@@ -216,6 +220,7 @@ cudaError_t allow_shared_memory() {
       static_cast<int>(smem_bytes<kApprox>(2048)));
   if (err == cudaSuccess) err = rotate_cluster::allow_shared_memory<S, 2>(2048);
   if (err == cudaSuccess) err = rotate_cluster::allow_shared_memory<S, 4>(2048);
+  if (err == cudaSuccess) err = rotate_cluster::allow_shared_memory<S, 8>(2048);
   return err;
 }
 
@@ -232,6 +237,10 @@ int launch(const void* acc_in, void* acc_out, const void* amounts,
     return rotate_cluster::launch<S, 4>(
         acc_in, acc_out, static_cast<const int32_t*>(amounts), khat, tw,
         batch, n_steps, n, log_n, stream);
+  if (cluster == 8)
+    return rotate_cluster::launch<S, 8>(
+        acc_in, acc_out, static_cast<const int32_t*>(amounts), khat, tw,
+        batch, n_steps, n, log_n, stream);
   if (batch == 0) return 0;
   auto kernel = blind_rotate64_kernel<kRounded, kApprox>;
   const size_t smem = smem_bytes<kApprox>(n);
@@ -246,13 +255,14 @@ int launch(const void* acc_in, void* acc_out, const void* amounts,
 template <bool kRounded, bool kApprox>
 int max_clusters(int n, int cluster) {
   using S = Spec<kRounded, kApprox>;
-  return cluster == 2 ? rotate_cluster::max_active_clusters<S, 2>(n)
-                      : rotate_cluster::max_active_clusters<S, 4>(n);
+  return cluster == 2   ? rotate_cluster::max_active_clusters<S, 2>(n)
+         : cluster == 4 ? rotate_cluster::max_active_clusters<S, 4>(n)
+                        : rotate_cluster::max_active_clusters<S, 8>(n);
 }
 
 bool valid(int n, int cluster) {
   return n >= 64 && n <= 2048 && !(n & (n - 1)) &&
-         (cluster == 1 || cluster == 2 || cluster == 4);
+         (cluster == 1 || cluster == 2 || cluster == 4 || cluster == 8);
 }
 
 }  // namespace
@@ -271,7 +281,8 @@ extern "C" int fhe_blind_rotate64_init() {
 // acc_in, acc_out: u64 [batch, 2, n]; amounts: int32 [batch, n_steps];
 // khat: u16 [n_steps, 2 primes, 2 digit rows, 16, n]; tw: u32 [2 primes,
 // 2 (fwd, inv), n, 2 (twiddle, its Shoup quotient)] (ntt.kernel_twiddles);
-// rounded, approx: the mode (0 or 1); cluster: blocks per item, 1, 2 or 4.
+// rounded, approx: the mode (0 or 1); cluster: blocks per item, 1, 2, 4 or
+// 8.
 // Launches on `stream`; returns the cudaError_t of the launch.
 extern "C" int fhe_blind_rotate64(const void* acc_in, void* acc_out,
                                   const void* amounts, const void* khat,
@@ -296,7 +307,7 @@ extern "C" int fhe_blind_rotate64(const void* acc_in, void* acc_out,
                               n_steps, n, log_n, cluster, s);
 }
 
-// How many clusters of the body (cluster = 2 or 4) the current device runs
+// How many clusters of the body (cluster = 2, 4 or 8) the current device runs
 // at once at this n and mode, or minus the cudaError_t.
 extern "C" int fhe_blind_rotate64_max_clusters(int n, int rounded, int approx,
                                                int cluster) {

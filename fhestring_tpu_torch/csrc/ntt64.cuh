@@ -383,20 +383,29 @@ __device__ void ntt_inv(uint32_t* x, int npoly, int log_n,
   inv_pass<P, 3, false, true>(x, npoly, log_n, log_u, psi_inv_rev);
 }
 
-// x[(col - col0) * kCount + s - kS0][h] = sum_r sum_{la + lb = s}
-// d_r[la][h] * key[r][col * 8 + lb][h] mod P for the kCols output rows from
-// col0, with d0 and d1 the transformed limb polys [3][n] of digit rows 0 and
-// 1 (x, d0 and d1 swizzled, the key not).  d0 and d1 may lie inside x: each
-// column is read, then written, by one thread only.  key: this step's and
-// this prime's hats, u16 [R][16][n] in device memory, or (kStaged) a copy of
-// the kCols rows' polys in shared memory, u16 [R][kCols * 8][n] with
-// col0 = 0.
-template <uint32_t P, bool kApprox, int kCols, bool kStaged = false>
-__device__ void pointwise(uint32_t* x, const uint32_t* d0, const uint32_t* d1,
-                          const uint16_t* __restrict__ key, int col0, int n) {
-  using Pl = Planes<kApprox>;
-  constexpr int kLb0 = Pl::kS0 > kLimbs - 1 ? Pl::kS0 - (kLimbs - 1) : 0;
-  constexpr int kRowPolys = kStaged ? kCols * kKeyPlanes : kKeyPolys;
+// x[(col - col0) * (kS1 - kS0) + s - kS0][h] = sum_r sum_{la + lb = s}
+// d_r[la][h] * key[r][col * 8 + lb][h] mod P for the shift planes s in
+// [kS0, kS1) of the kCols output rows from col0, with d0 and d1 the
+// transformed limb polys [3][n] of digit rows 0 and 1 (x, d0 and d1
+// swizzled, the key not).  d0 and d1 may lie inside x: each column is read,
+// then written, by one thread only.  key: this step's and this prime's hats,
+// u16 [R][16][n] in device memory, or (kStaged) a copy in shared memory of
+// the limbs lb of each of the kCols rows from kStagedLb0 on, kStagedLimbs of
+// them, u16 [R][kCols * kStagedLimbs][n], with col0 = 0.
+template <uint32_t P, int kS0, int kS1, int kCols, bool kStaged,
+          int kStagedLb0 = 0, int kStagedLimbs = kKeyPlanes>
+__device__ void pointwise_planes(uint32_t* x, const uint32_t* d0,
+                                 const uint32_t* d1,
+                                 const uint16_t* __restrict__ key, int col0,
+                                 int n) {
+  constexpr int kCount = kS1 - kS0;
+  constexpr int kLb0 = kS0 > kLimbs - 1 ? kS0 - (kLimbs - 1) : 0;
+  constexpr int kLb1 = kS1 < kKeyPlanes ? kS1 : kKeyPlanes;
+  constexpr int kColPolys = kStaged ? kStagedLimbs : kKeyPlanes;
+  constexpr int kRowPolys = kStaged ? kCols * kStagedLimbs : kKeyPolys;
+  constexpr int kFirst = kStaged ? kStagedLb0 : 0;
+  static_assert(kFirst <= kLb0 && kLb1 <= kFirst + kColPolys,
+                "the staged limbs hold every limb the planes read");
   const int shift = swizzle_shift(threadIdx.x & (n - 1));
   for (int h = threadIdx.x; h < n; h += blockDim.x) {
     uint32_t d[kDigitPolys];
@@ -406,33 +415,44 @@ __device__ void pointwise(uint32_t* x, const uint32_t* d0, const uint32_t* d1,
       d[la] = d0[la * n + at];
       d[kLimbs + la] = d1[la * n + at];
     }
-    uint64_t out[kCols * Pl::kCount];  // each a sum of 6 products < 2^32
+    uint64_t out[kCols * kCount];  // each a sum of 6 products < 2^32
 #pragma unroll
-    for (int o = 0; o < kCols * Pl::kCount; ++o) out[o] = 0;
+    for (int o = 0; o < kCols * kCount; ++o) out[o] = 0;
 #pragma unroll
     for (int r = 0; r < kRows; ++r) {
 #pragma unroll
       for (int c = 0; c < kCols; ++c) {
 #pragma unroll
-        for (int lb = kLb0; lb < kKeyPlanes; ++lb) {
+        for (int lb = kLb0; lb < kLb1; ++lb) {
           const uint16_t* kp =
-              key + (r * kRowPolys + (col0 + c) * kKeyPlanes + lb) * n + h;
+              key + (r * kRowPolys + (col0 + c) * kColPolys + lb - kFirst) *
+                        n + h;
           const uint32_t k = kStaged ? *kp : __ldg(kp);
 #pragma unroll
           for (int la = 0; la < kLimbs; ++la) {
             const int s = la + lb;
-            if (s >= Pl::kS0 && s < kKeyPlanes)
-              out[c * Pl::kCount + s - Pl::kS0] +=
+            if (s >= kS0 && s < kS1)
+              out[c * kCount + s - kS0] +=
                   static_cast<uint64_t>(d[r * kLimbs + la]) * k;
           }
         }
       }
     }
 #pragma unroll
-    for (int o = 0; o < kCols * Pl::kCount; ++o)
+    for (int o = 0; o < kCols * kCount; ++o)
       x[o * n + at] = reduce_sum<P>(out[o]);
   }
   __syncthreads();
+}
+
+// Every shift plane of the mode: x[(col - col0) * kCount + s - kS0][h], as
+// pointwise_planes; the staged key holds all 8 limbs of each of the kCols
+// rows, u16 [R][kCols * 8][n].
+template <uint32_t P, bool kApprox, int kCols, bool kStaged = false>
+__device__ void pointwise(uint32_t* x, const uint32_t* d0, const uint32_t* d1,
+                          const uint16_t* __restrict__ key, int col0, int n) {
+  pointwise_planes<P, Planes<kApprox>::kS0, kKeyPlanes, kCols, kStaged>(
+      x, d0, d1, key, col0, n);
 }
 
 // The digit-limb polys (x[(r * 3 + la) * n + swizzle(t)] as residues mod P)
@@ -515,6 +535,31 @@ struct ClusterProduct {
                                           const uint32_t* d1,
                                           const uint16_t* staged, int n) {
     ntt64::pointwise<P, kApprox, 1, true>(x, d0, d1, staged, 0, n);
+  }
+
+  // The 8-block body (rotate_cluster.cuh) splits an output row's planes
+  // between two blocks: half 0 the first ceil(kCount / 2), half 1 the rest
+  // (approx 3 + 2, exact 4 + 4).  Plane s = la + lb reads key limbs
+  // lb in [s - 2, s], so a half's planes [kS0, kS1) read the limbs from
+  // max(kS0 - 2, 0) to kS1 - 1: its run of each digit row, which overlaps
+  // the other half's by 2 limbs.
+  template <int kHalf>
+  struct Half {
+    static constexpr int kFirst = kHalf == 0 ? 0 : (kCount + 1) / 2;
+    static constexpr int kPlanes = kHalf == 0 ? (kCount + 1) / 2 : kCount / 2;
+    static constexpr int kS0 = Planes<kApprox>::kS0 + kFirst;
+    static constexpr int kS1 = kS0 + kPlanes;
+    static constexpr int kRunFirst = kS0 > kLimbs - 1 ? kS0 - (kLimbs - 1) : 0;
+    static constexpr int kRunPolys = kS1 - kRunFirst;
+  };
+
+  template <uint32_t P, int kHalf>
+  static __device__ void pointwise_half(uint32_t* x, const uint32_t* d0,
+                                        const uint32_t* d1,
+                                        const uint16_t* staged, int n) {
+    using H = Half<kHalf>;
+    ntt64::pointwise_planes<P, H::kS0, H::kS1, 1, true, H::kRunFirst,
+                            H::kRunPolys>(x, d0, d1, staged, 0, n);
   }
 
   template <class T0, class T1>

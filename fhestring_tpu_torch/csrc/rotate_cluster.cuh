@@ -1,12 +1,13 @@
 // One batch item's whole blind rotation on a thread-block cluster: the
 // bodies of blind_rotate32.cu and blind_rotate64.cu that spread an item over
-// 2 or 4 SMs of a Hopper card, so that a batch of a few items still uses
+// 2, 4 or 8 SMs of a Hopper card, so that a batch of a few items still uses
 // most of it.
 //
 // A step of the rotation splits with little communication.  The two primes
-// are independent until the CRT, and the k+1 = 2 output rows are independent
-// after the forward transforms.  A cluster of kC blocks, rank = prime +
-// 2 * row, runs one item:
+// are independent until the CRT, the k+1 = 2 output rows are independent
+// after the forward transforms, and so are an output row's product planes
+// until the CRT.  A cluster of kC blocks, rank = prime + 2 * row + 4 * half,
+// runs one item:
 //
 //   kC = 2  block p makes the digits once, runs prime p's 6 forward
 //           transforms, the pointwise products against prime p's half of
@@ -19,23 +20,46 @@
 //           prime p and output row r, inverse-transforms row r's product
 //           planes, stores their residues into block (1 - p, r), and both
 //           run row r's CRT.
+//   kC = 8  block (p, r, h) keeps accumulator row r, as the 4-block body's
+//           block (p, r) does, and runs half h of row r's product planes
+//           (S::Half: K2 approx 3 + 2, exact 4 + 4, K1 2 + 2).  It makes row
+//           r's 3 digit polys and transforms mod prime p those of its half
+//           (first_limb: half 0 limb 0, half 1 limbs 1 and 2), and stores
+//           the hats into the hat buffers, [2 rows][3 limbs], of the four
+//           blocks of prime p, itself included: (p, r, h), (p, 1 - r, h),
+//           (p, r, 1 - h), (p, 1 - r, 1 - h).  Then it multiplies all 6 hats
+//           against the key polys its planes read, inverse-transforms its
+//           planes, and stores their residues as u16 into the residue
+//           buffers, [2 primes][all planes of the row], of the four blocks
+//           of row r, itself included: (p, r, h), (1 - p, r, h),
+//           (p, r, 1 - h), (1 - p, r, 1 - h).  All four then run the whole
+//           CRT of row r from those buffers and update their own copy of it.
 //
-// So a block runs a half (kC = 2) or a quarter (kC = 4) of the step's
-// transforms and reads a half or a quarter of the step's key.  The result
-// is bit-identical to the one-block schedule: the same integers are summed,
-// only on other SMs.
+// So a block runs a half (kC = 2), a quarter (kC = 4) or an eighth (kC = 8,
+// give or take a transform) of the step's transforms and reads that share
+// of the step's key (kC = 8: a little more, the key limbs its planes read).
+// The result is bit-identical to the one-block schedule: the same integers
+// are summed, only on other SMs.
 //
 // Ordering of distributed shared memory.  A block only ever stores into a
 // peer, into buffers that the peer reads but never writes (hin: the other
-// row's hats; res: the other prime's residues).  Two cluster barriers a
-// step order every store against the peer's reads:
+// row's hats, at kC = 8 the other half's too; res: the other prime's
+// residues, at kC = 8 the other half's too).  Two cluster barriers a step
+// order every store against the peer's reads:
 //
 //   kC = 4  H (after the hat stores, before the pointwise products) and R
-//           (after the residue stores, before the CRT).  A peer stores hats
+//   and 8   (after the residue stores, before the CRT).  A peer stores hats
 //           of step j + 1 only after R of step j, which this block reaches
 //           after it read hin in step j's pointwise products; it stores
 //           residues of step j + 1 only after H of step j + 1, which this
-//           block reaches after step j's CRT.
+//           block reaches after step j's CRT.  Both barriers hold the whole
+//           cluster, so the argument does not depend on which peer stores:
+//           at kC = 8 three peers store into hin and three into res, each
+//           between the same two barriers as at kC = 4; every place of a
+//           buffer has one writer a step; and a block's stores into its own
+//           hin and res come after its own reads of them a step before (the
+//           pointwise products, the CRT), in program order.  So kC = 8 needs
+//           no barrier more than kC = 4.
 //   kC = 2  R as above, and a barrier split into its arrive (after the CRT)
 //           and its wait (before the next residue stores), so its latency
 //           hides behind the next step's transforms.
@@ -71,13 +95,21 @@
 //                  polys, that many polys apart, the row's first at
 //                  row * kStageRunPolys;
 //   S::pointwise_staged<P>(x, d0, d1, staged, n)   pointwise<P, 1> on a copy
-//                  of those runs, packed, in shared memory.
+//                  of those runs, packed, in shared memory;
+//   kC = 8 only (blind_rotate32.cu, blind_rotate64.cu):
+//   S::Half<h>     half h's planes of an output row, kPlanes of them from
+//                  the row's plane kFirst, and the key polys they read:
+//                  kRunPolys of each run from its poly kRunFirst;
+//   S::pointwise_half<P, h>(x, d0, d1, staged, n)   those planes at
+//                  x[i * n + swizzle(h)], from a copy of those key polys,
+//                  packed, in shared memory.
 //
-// The 4-block body holds its quarter of a step's key in shared memory: one
-// thread starts bulk copies (cp.async.bulk, completion on an mbarrier) of
-// step j + 1's slice as soon as step j's pointwise products are done, so
-// the slice lands while the inverse transforms, the CRT and the next
-// forward transforms run, and the products read shared memory, not L2.
+// The 4- and 8-block bodies hold their slice of a step's key in shared
+// memory: one thread starts bulk copies (cp.async.bulk, completion on an
+// mbarrier) of step j + 1's slice as soon as step j's pointwise products
+// are done, so the slice lands while the inverse transforms, the CRT and
+// the next forward transforms run, and the products read shared memory,
+// not L2.
 
 #pragma once
 
@@ -136,14 +168,14 @@ __device__ __forceinline__ void mbarrier_wait(uint64_t* bar, uint32_t parity) {
 }
 
 // One thread: start the bulk copies of the block's key slice of one step
-// and prime (S::kStageRuns runs of S::kStageRunPolys polys from `key`,
+// and prime (S::kStageRuns runs of kRunPolys polys from `key`,
 // S::kStageRunStride polys apart) into `staged`; the barrier completes when
 // all their bytes have landed.
-template <class S>
+template <class S, int kRunPolys = S::kStageRunPolys>
 __device__ __forceinline__ void stage_key(uint16_t* staged,
                                           const uint16_t* key, uint64_t* bar,
                                           int n) {
-  const uint32_t run_bytes = S::kStageRunPolys * n * 2;
+  const uint32_t run_bytes = kRunPolys * n * 2;
   asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(
                    shared_address(bar)),
                "r"(S::kStageRuns * run_bytes)
@@ -152,52 +184,167 @@ __device__ __forceinline__ void stage_key(uint16_t* staged,
     asm volatile(
         "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
         "[%0], [%1], %2, [%3];" ::"r"(
-            shared_address(staged + run * S::kStageRunPolys * n)),
+            shared_address(staged + run * kRunPolys * n)),
         "l"(key + static_cast<size_t>(run) * S::kStageRunStride * n),
         "r"(run_bytes), "r"(shared_address(bar))
         : "memory");
 }
 
+// The product planes, inverse transforms and key polys of a run that a
+// block of an output row runs: the row's all (kC = 2 and 4), half h's
+// (kC = 8).
+template <class S, int kC>
+struct Share {
+  static constexpr int kPlanes = S::kCount;  // the most over the blocks
+  static constexpr int kRunPolys = S::kStageRunPolys;
+  static __device__ __forceinline__ int planes(int) { return kPlanes; }
+  static __device__ __forceinline__ int run_first(int) { return 0; }
+
+  template <uint32_t P>
+  static __device__ __forceinline__ void pointwise(uint32_t* x,
+                                                   const uint32_t* d0,
+                                                   const uint32_t* d1,
+                                                   const uint16_t* staged,
+                                                   int n, int) {
+    S::template pointwise_staged<P>(x, d0, d1, staged, n);
+  }
+
+  static __device__ __forceinline__ void stage(uint16_t* staged,
+                                               const uint16_t* key,
+                                               uint64_t* bar, int n, int) {
+    stage_key<S>(staged, key, bar, n);
+  }
+};
+
+template <class S>
+struct Share<S, 8> {
+  using H0 = typename S::template Half<0>;
+  using H1 = typename S::template Half<1>;
+  static_assert(H0::kFirst == 0 && H1::kFirst == H0::kPlanes &&
+                    H0::kPlanes + H1::kPlanes == S::kCount,
+                "the halves split the row's planes");
+  static constexpr int kPlanes =
+      H0::kPlanes > H1::kPlanes ? H0::kPlanes : H1::kPlanes;
+  static constexpr int kRunPolys =
+      H0::kRunPolys > H1::kRunPolys ? H0::kRunPolys : H1::kRunPolys;
+  static __device__ __forceinline__ int planes(int half) {
+    return half ? H1::kPlanes : H0::kPlanes;
+  }
+  static __device__ __forceinline__ int first(int half) {
+    return half ? H1::kFirst : H0::kFirst;
+  }
+  static __device__ __forceinline__ int run_first(int half) {
+    return half ? H1::kRunFirst : H0::kRunFirst;
+  }
+
+  template <uint32_t P>
+  static __device__ __forceinline__ void pointwise(uint32_t* x,
+                                                   const uint32_t* d0,
+                                                   const uint32_t* d1,
+                                                   const uint16_t* staged,
+                                                   int n, int half) {
+    if (half)
+      S::template pointwise_half<P, 1>(x, d0, d1, staged, n);
+    else
+      S::template pointwise_half<P, 0>(x, d0, d1, staged, n);
+  }
+
+  static __device__ __forceinline__ void stage(uint16_t* staged,
+                                               const uint16_t* key,
+                                               uint64_t* bar, int n,
+                                               int half) {
+    if (half)
+      stage_key<S, H1::kRunPolys>(staged, key, bar, n);
+    else
+      stage_key<S, H0::kRunPolys>(staged, key, bar, n);
+  }
+};
+
 // What one block of a cluster of kC holds, and its shared memory.
 template <class S, int kC>
 struct Body {
-  static_assert(kC == 2 || kC == 4, "cluster bodies: 2 or 4 blocks an item");
-  static constexpr bool kSplitRows = kC == 4;
+  static_assert(kC == 2 || kC == 4 || kC == 8,
+                "cluster bodies: 2, 4 or 8 blocks an item");
+  using Sh = Share<S, kC>;
+  static constexpr bool kSplitRows = kC >= 4;
+  static constexpr bool kSplitPlanes = kC == 8;
   static constexpr int kMyRows = kSplitRows ? 1 : kRows;
   static constexpr int kHats = kMyRows * kLimbs;     // forward transforms
-  static constexpr int kOut = kMyRows * S::kCount;   // inverse transforms
+  static constexpr int kOut = kMyRows * Sh::kPlanes;  // inverse transforms
   static constexpr int kWork = kOut > kHats ? kOut : kHats;
-  static constexpr int kHin = kSplitRows ? kLimbs : 0;
-  // The 4-block body has room to hold its quarter of a step's key.
-  static constexpr int kStaged =
-      kSplitRows ? S::kStageRuns * S::kStageRunPolys : 0;
-  // acc [kMyRows][n], x u32 [kWork][n], hin u32 [kHin][n], res u16 [kOut][n],
+  // The hats a block receives: the other row's (kC = 4), or (kC = 8) both
+  // rows' of its prime, [2][kLimbs], its own included.
+  static constexpr int kHin = kSplitPlanes ? 2 * kLimbs : kSplitRows ? kLimbs : 0;
+  // The residues a block receives: the other prime's of its planes, or
+  // (kC = 8) both primes' of every plane of its row, [2][S::kCount].
+  static constexpr int kRes = kSplitPlanes ? 2 * S::kCount : kOut;
+  // The 4- and 8-block bodies have room to hold their slice of a step's key.
+  static constexpr int kStaged = kSplitRows ? S::kStageRuns * Sh::kRunPolys : 0;
+  // acc [kMyRows][n], x u32 [kWork][n], hin u32 [kHin][n], res u16 [kRes][n],
   // staged key u16 [kStaged][n], one mbarrier
   static size_t smem_bytes(int n) {
     return static_cast<size_t>(n) * (kMyRows * sizeof(typename S::Acc) +
                                      4 * (kWork + kHin) +
-                                     2 * (kOut + kStaged)) +
+                                     2 * (kRes + kStaged)) +
            sizeof(uint64_t);
   }
 };
 
+// kC = 8: the digit limbs of its row whose forward transforms a half runs,
+// half 0 limb 0 and half 1 limbs 1 and 2: half 1 has as many product planes
+// as half 0 or fewer, so the two halves' transforms are as even as 3 + 5
+// (approx) or 3 + 8 (exact) polys split in two allow.
+__device__ __forceinline__ int first_limb(int half) { return half ? 1 : 0; }
+__device__ __forceinline__ int limb_count(int half) { return half ? 2 : 1; }
+
+// kC = 8: where a block stores its part of a step, the same place of four
+// blocks' buffers, its own first.  hats: its row's hats of its limbs, into
+// hin at (row * 3 + first limb) * n of blocks rank, rank ^ 2, rank ^ 4 and
+// rank ^ 6 (every block of its prime); res: its planes' residues, into res
+// at (prime * S::kCount + first plane) * n of blocks rank, rank ^ 1,
+// rank ^ 4 and rank ^ 5 (every block of its row).
+struct Stores8 {
+  uint4* hats[4];
+  uint32_t* res[4];
+};
+
 // One step's work of one block up to its residue stores, for its prime P.
+// peer_hin, peer_res (kC = 2, 4): where the hats and residues go in block
+// rank ^ 2 and rank ^ 1; to (kC = 8): where they go.
 template <class S, int kC, uint32_t P>
 __device__ void prime_part(uint32_t* x, const uint32_t* hin,
                            uint32_t* peer_hin, uint16_t* peer_res,
+                           const Stores8& to,
                            const typename S::Acc* acc,
                            const typename S::Step& a,
                            const uint16_t* __restrict__ key,
                            uint16_t* staged, uint64_t* bar, int step,
                            int n_steps, size_t step_stride,
-                           const uint2* __restrict__ tw, int row0, int n,
-                           int log_n) {
+                           const uint2* __restrict__ tw, int row0, int half,
+                           int n, int log_n) {
   using B = Body<S, kC>;
   S::template digits<P>(x, acc, B::kMyRows, a, n, log_n);
-  ntt64::ntt_fwd<P>(x, B::kHats, log_n, tw);
   const uint32_t* d0 = x;
   const uint32_t* d1 = x + kLimbs * n;
-  if constexpr (B::kSplitRows) {
+  if constexpr (B::kSplitPlanes) {
+    const int l0 = first_limb(half), count = limb_count(half);
+    ntt64::ntt_fwd<P>(x + l0 * n, count, log_n, tw);
+    const uint4* src = reinterpret_cast<const uint4*>(x + l0 * n);
+    for (int idx = threadIdx.x; idx < count * n / 4; idx += blockDim.x) {
+      const uint4 v = src[idx];
+      to.hats[0][idx] = v;
+      to.hats[1][idx] = v;
+      to.hats[2][idx] = v;
+      to.hats[3][idx] = v;
+    }
+    cluster_arrive();  // barrier H
+    cluster_wait();
+    d0 = hin;
+    d1 = hin + kLimbs * n;
+  } else {
+    ntt64::ntt_fwd<P>(x, B::kHats, log_n, tw);
+  }
+  if constexpr (B::kSplitRows && !B::kSplitPlanes) {
     const uint4* src = reinterpret_cast<const uint4*>(x);
     uint4* dst = reinterpret_cast<uint4*>(peer_hin);
     for (int idx = threadIdx.x; idx < kLimbs * n / 4; idx += blockDim.x)
@@ -206,24 +353,38 @@ __device__ void prime_part(uint32_t* x, const uint32_t* hin,
     cluster_wait();
     d0 = row0 == 0 ? x : hin;
     d1 = row0 == 0 ? hin : x;
+  }
+  if constexpr (B::kSplitRows) {
     // This step's key slice was started a step ago; the next one's starts
     // once every thread is done with this one's (pointwise ends in a
     // block-wide barrier).
     mbarrier_wait(bar, step & 1);
-    S::template pointwise_staged<P>(x, d0, d1, staged, n);
+    B::Sh::template pointwise<P>(x, d0, d1, staged, n, half);
     if (threadIdx.x == 0 && step + 1 < n_steps)
-      stage_key<S>(staged, key + step_stride, bar, n);
+      B::Sh::stage(staged, key + step_stride, bar, n, half);
   } else {
     S::template pointwise<P, B::kMyRows>(x, d0, d1, key, row0, n);
   }
-  ntt64::ntt_inv<P>(x, B::kOut, log_n, tw + n);
+  const int out = B::kMyRows * B::Sh::planes(half);
+  ntt64::ntt_inv<P>(x, out, log_n, tw + n);
   if constexpr (!B::kSplitRows)
     cluster_wait();  // the peer has read step j - 1's res
   const uint2* src = reinterpret_cast<const uint2*>(x);
   uint32_t* dst = reinterpret_cast<uint32_t*>(peer_res);
-  for (int idx = threadIdx.x; idx < B::kOut * n / 2; idx += blockDim.x) {
-    const uint2 v = src[idx];  // two residues < 2^16
-    dst[idx] = v.x | (v.y << 16);
+  if constexpr (B::kSplitPlanes) {
+    for (int idx = threadIdx.x; idx < out * n / 2; idx += blockDim.x) {
+      const uint2 v = src[idx];  // two residues < 2^16
+      const uint32_t w = v.x | (v.y << 16);
+      to.res[0][idx] = w;
+      to.res[1][idx] = w;
+      to.res[2][idx] = w;
+      to.res[3][idx] = w;
+    }
+  } else {
+    for (int idx = threadIdx.x; idx < out * n / 2; idx += blockDim.x) {
+      const uint2 v = src[idx];  // two residues < 2^16
+      dst[idx] = v.x | (v.y << 16);
+    }
   }
 }
 
@@ -239,17 +400,36 @@ kernel(const typename S::Acc* acc_in, typename S::Acc* acc_out,
   uint32_t* x = reinterpret_cast<uint32_t*>(acc + B::kMyRows * n);
   uint32_t* hin = x + B::kWork * n;
   uint16_t* res = reinterpret_cast<uint16_t*>(hin + B::kHin * n);
-  uint16_t* staged = res + B::kOut * n;                      // [kStaged][n]
+  uint16_t* staged = res + B::kRes * n;                      // [kStaged][n]
   uint64_t* bar = reinterpret_cast<uint64_t*>(staged + B::kStaged * n);
 
   cg::cluster_group cluster = cg::this_cluster();
   const unsigned rank = cluster.block_rank();
   const int prime = rank & 1;
-  const int row0 = B::kSplitRows ? static_cast<int>(rank >> 1) : 0;
+  const int row0 = B::kSplitPlanes ? static_cast<int>((rank >> 1) & 1u)
+                   : B::kSplitRows ? static_cast<int>(rank >> 1)
+                                   : 0;
+  const int half = B::kSplitPlanes ? static_cast<int>(rank >> 2) : 0;
   const size_t item = blockIdx.x / kC;
   uint16_t* peer_res = cluster.map_shared_rank(res, rank ^ 1u);
   uint32_t* peer_hin =
       B::kSplitRows ? cluster.map_shared_rank(hin, rank ^ 2u) : nullptr;
+  Stores8 to{};
+  if constexpr (B::kSplitPlanes) {
+    uint32_t* hats = hin + (row0 * kLimbs + first_limb(half)) * n;
+    uint16_t* planes =
+        res + (prime * S::kCount + B::Sh::first(half)) * n;
+    const unsigned hat_peer[3] = {rank ^ 2u, rank ^ 4u, rank ^ 6u};
+    const unsigned res_peer[3] = {rank ^ 1u, rank ^ 4u, rank ^ 5u};
+    to.hats[0] = reinterpret_cast<uint4*>(hats);
+    to.res[0] = reinterpret_cast<uint32_t*>(planes);
+    for (int k = 0; k < 3; ++k) {
+      to.hats[k + 1] = reinterpret_cast<uint4*>(
+          cluster.map_shared_rank(hats, hat_peer[k]));
+      to.res[k + 1] = reinterpret_cast<uint32_t*>(
+          cluster.map_shared_rank(planes, res_peer[k]));
+    }
+  }
 
   // The accumulator may be updated in place (acc_out == acc_in): a row is
   // read here, before the first cluster barrier, and written after the
@@ -262,14 +442,17 @@ kernel(const typename S::Acc* acc_in, typename S::Acc* acc_out,
   if (!B::kSplitRows) cluster_arrive();
 
   // The block's key: its prime's half of a step and, where the block holds
-  // one output row, that row's polys of each run.
+  // one output row, that row's polys of each run (kC = 8: those its half's
+  // planes read).
   const uint16_t* key = khat + static_cast<size_t>(prime) * S::kKeyPolys * n;
   const size_t step_stride = static_cast<size_t>(2) * S::kKeyPolys * n;
   if (B::kSplitRows) {
     key += static_cast<size_t>(row0) * S::kStageRunPolys * n;
+    if constexpr (B::kSplitPlanes)
+      key += static_cast<size_t>(B::Sh::run_first(half)) * n;
     if (threadIdx.x == 0) {
       mbarrier_init(bar);
-      if (n_steps > 0) stage_key<S>(staged, key, bar, n);
+      if (n_steps > 0) B::Sh::stage(staged, key, bar, n, half);
     }
     __syncthreads();
   }
@@ -278,27 +461,31 @@ kernel(const typename S::Acc* acc_in, typename S::Acc* acc_out,
   for (int j = 0; j < n_steps; ++j, key += step_stride) {
     const typename S::Step a = S::step(source, item, row0, n, n_steps, j);
     if (prime == 0)
-      prime_part<S, kC, kP0>(x, hin, peer_hin, peer_res, acc, a, key, staged,
-                             bar, j, n_steps, step_stride, twp, row0, n,
-                             log_n);
+      prime_part<S, kC, kP0>(x, hin, peer_hin, peer_res, to, acc, a, key,
+                             staged, bar, j, n_steps, step_stride, twp, row0,
+                             half, n, log_n);
     else
-      prime_part<S, kC, kP1>(x, hin, peer_hin, peer_res, acc, a, key, staged,
-                             bar, j, n_steps, step_stride, twp, row0, n,
-                             log_n);
+      prime_part<S, kC, kP1>(x, hin, peer_hin, peer_res, to, acc, a, key,
+                             staged, bar, j, n_steps, step_stride, twp, row0,
+                             half, n, log_n);
     cluster_arrive();  // barrier R
     cluster_wait();
     for (int idx = threadIdx.x; idx < B::kMyRows * n; idx += blockDim.x) {
       const int r = idx >> log_n, at = (idx & (n - 1)) + shift;
-      acc[idx] += prime == 0 ? S::crt_sum(x, res, r, at, n)
-                             : S::crt_sum(res, x, r, at, n);
+      if constexpr (B::kSplitPlanes)
+        acc[idx] += S::crt_sum(res, res + S::kCount * n, r, at, n);
+      else
+        acc[idx] += prime == 0 ? S::crt_sum(x, res, r, at, n)
+                               : S::crt_sum(res, x, r, at, n);
     }
     if (!B::kSplitRows) cluster_arrive();
     __syncthreads();
   }
   if (!B::kSplitRows) cluster_wait();
 
-  // Each row is written once: by block `row` of 2, by the prime-0 block of 4.
-  if (B::kSplitRows && prime != 0) return;
+  // Each row is written once: by block `row` of 2, by the prime-0 block of
+  // 4, by the prime-0 block of half 0 of 8.
+  if (B::kSplitRows && (prime != 0 || half != 0)) return;
   const int local = B::kSplitRows ? 0 : prime;
   const int row = B::kSplitRows ? row0 : prime;
   Acc* out = acc_out + (item * kRows + row) * n;

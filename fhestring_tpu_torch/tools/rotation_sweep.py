@@ -22,9 +22,10 @@ from ..crypto.kernels import cuda_build
 from . import card, cuda_ms, random_khat
 
 N, STEPS = 2048, 742
-BATCHES = (1, 5, 8, 16, 30, 31, 33, 66, 67, 90, 91, 132, 133, 150, 151, 198,
-           199, 264, 2048)
-EXACT_AT = (8, 33, 132, 2048)  # batches that also time K2's exact mode
+BATCHES = (1, 2, 3, 5, 8, 14, 15, 16, 17, 30, 31, 33, 66, 67, 90, 91, 132,
+           133, 150, 151, 198, 199, 264, 2048)
+# batches that also time K2's exact mode
+EXACT_AT = (2, 3, 8, 14, 16, 33, 132, 2048)
 PROD = dict(rounded=True, approx=True)
 
 
@@ -35,7 +36,8 @@ def ptxas_report() -> None:
             if "Compiling entry function" in line:
                 entry = line.split("'")[1]
             elif "Used" in line and "registers" in line:
-                body = ("<4>" if "Li4E" in entry else
+                body = ("<8>" if "Li8E" in entry else
+                        "<4>" if "Li4E" in entry else
                         "<2>" if "Li2E" in entry else "<1>")
                 print(f"ptxas {name} {body} {entry[-28:]}: "
                       f"{line.split(':', 1)[1].strip()}")
@@ -77,7 +79,7 @@ def main() -> None:
     cuda_build.build("blind_rotate32", "blind_rotate64")
     ptxas_report()
     dev = torch.device("cuda")
-    for c in (2, 4):
+    for c in br.CLUSTERS[1:]:
         print(f"clusters of {c} that run at once at N={N}: K1 "
               f"{br.max_active_clusters(0, c, N)}, K2 production "
               f"{br64.max_active_clusters(0, c, N, True, True)}, K2 exact "

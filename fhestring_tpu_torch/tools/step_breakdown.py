@@ -2,13 +2,15 @@
 
 Builds copies of ``csrc/blind_rotate64.cu`` in which one part of the step
 returns at once (the copies give wrong results: they are timed, never
-compared), and times each body at B=8, N=2048, n=742 in the production and
-the exact mode.  A part's cost is the base time less the time without it.
+compared), and times each body (1, 2, 4 and 8 blocks an item) at B=8,
+N=2048, n=742 in the production and the exact mode.  A part's cost is the base time less the time without it.
 Parts: the pointwise products, the forward or the inverse transforms, and
 of the transforms the pass of the 1-2 left-over stages, the pass on
 neighbouring coefficients, and the passes of 3 stages.  Usage:
 
-    python3 -m fhestring_tpu_torch.tools.step_breakdown
+    python3 -m fhestring_tpu_torch.tools.step_breakdown [B ...]
+
+(batches; default 8).
 """
 
 from __future__ import annotations
@@ -17,11 +19,13 @@ import ctypes
 import os
 import shutil
 import subprocess
+import sys
 import tempfile
 
 import torch
 
 from ..crypto import ntt
+from ..crypto.kernels import blind_rotate64 as br64
 from ..crypto.kernels import cuda_build
 from . import card, cuda_ms, random_khat
 
@@ -65,16 +69,12 @@ def patched_sources(directory: str) -> str:
 
 def main() -> None:
     print(card())
-    n, steps, batch = 2048, 742, 8
+    n, steps = 2048, 742
+    batches = tuple(map(int, sys.argv[1:])) or (8,)
     dev = torch.device("cuda")
     gen = torch.Generator().manual_seed(1)
     khat = random_khat(gen, steps, 2, 16, n).to(dev)
-    acc = torch.randint(-2**63, 2**63 - 1, (batch, 2, n), dtype=torch.int64,
-                        generator=gen).to(dev)
-    amt = torch.randint(0, 2 * n, (batch, steps), dtype=torch.int32,
-                        generator=gen).to(dev)
     tw = ntt.kernel_twiddles(n, "cuda")
-    out = torch.empty_like(acc)
     nvcc = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
     with tempfile.TemporaryDirectory() as tmp:
         source = patched_sources(tmp)
@@ -86,8 +86,7 @@ def main() -> None:
                          if f not in ("-Xptxas", "-v")),
                  f"-DFHE_SKIP={mask}", "-o", lib, source],
                 stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
-        print(f"K2 at B={batch} N={n} n={steps}, ms: body<c> production (p) "
-              f"and exact (x)")
+        functions = {}
         for name, (lib, proc) in builds.items():
             log = proc.communicate()[0]
             if proc.returncode:
@@ -99,20 +98,30 @@ def main() -> None:
             fn = cdll.fhe_blind_rotate64
             fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [
                 ctypes.c_void_p]
-            row = [f"{name:28s}"]
-            for cluster in (1, 2, 4):
-                for rounded, approx in ((1, 1), (0, 0)):
-                    def run():
-                        err = fn(acc.data_ptr(), out.data_ptr(),
-                                 amt.data_ptr(), khat.data_ptr(),
-                                 tw.data_ptr(), batch, steps, n, rounded,
-                                 approx, cluster,
-                                 torch.cuda.current_stream().cuda_stream)
-                        if err:
-                            raise RuntimeError(f"launch failed: {err}")
-                    row.append(f"<{cluster}>{'p' if rounded else 'x'} "
-                               f"{cuda_ms(run):6.2f}")
-            print(" ".join(row), flush=True)
+            functions[name] = fn
+        for batch in batches:
+            acc = torch.randint(-2**63, 2**63 - 1, (batch, 2, n),
+                                dtype=torch.int64, generator=gen).to(dev)
+            amt = torch.randint(0, 2 * n, (batch, steps), dtype=torch.int32,
+                                generator=gen).to(dev)
+            out = torch.empty_like(acc)
+            print(f"K2 at B={batch} N={n} n={steps}, ms: body<c> production "
+                  f"(p) and exact (x)")
+            for name, fn in functions.items():
+                row = [f"{name:28s}"]
+                for cluster in br64.CLUSTERS:
+                    for rounded, approx in ((1, 1), (0, 0)):
+                        def run():
+                            err = fn(acc.data_ptr(), out.data_ptr(),
+                                     amt.data_ptr(), khat.data_ptr(),
+                                     tw.data_ptr(), batch, steps, n,
+                                     rounded, approx, cluster,
+                                     torch.cuda.current_stream().cuda_stream)
+                            if err:
+                                raise RuntimeError(f"launch failed: {err}")
+                        row.append(f"<{cluster}>{'p' if rounded else 'x'} "
+                                   f"{cuda_ms(run):6.2f}")
+                print(" ".join(row), flush=True)
 
 
 if __name__ == "__main__":

@@ -1,7 +1,7 @@
 """The CUDA kernels on the card, against their plain versions:
 blind_rotate32 (turbo), blind_rotate64 (PARAM_PROD family, in its exact,
 rounded, rounded + approx and approx modes), each in every body (1 block
-per item and clusters of 2 and 4), and the step-wise 64-bit route's
+per item and clusters of 2, 4 and 8), and the step-wise 64-bit route's
 rotate_decompose, ext_product and ntt_ext.
 
 These tests need a CUDA device and nvcc; without them they skip.  Run them
@@ -251,14 +251,17 @@ def test_contains64_on_cuda_equals_cpu_in_the_same_mode(cuda, monkeypatch):
 
 # ---------------------------------------------------------------------------
 # the bodies of blind_rotate32 and blind_rotate64: 1 block per item, and
-# thread-block clusters of 2 and 4 blocks per item
+# thread-block clusters of 2, 4 and 8 blocks per item
 # ---------------------------------------------------------------------------
 
 # Every n where the transforms split their stages otherwise (ntt64.cuh:
 # splits): n = 64 and 128 run passes of 1 and 2 stages; from 128 on, the
 # swizzle of the work buffers uses bits 5 and 6 of a coefficient's index.
+# At N = 2048 the batches the 8-block body is picked for (1, 2, 3, 8, 15;
+# one past a wave of 8-clusters: test_eight_blocks_one_past_a_wave).
 BODY_SHAPES = [(1, 3, 64), (5, 3, 128), (5, 4, 256), (33, 3, 256),
-               (3, 3, 512), (3, 3, 1024), (1, 3, 2048), (5, 3, 2048),
+               (3, 3, 512), (3, 3, 1024), (1, 3, 2048), (2, 3, 2048),
+               (3, 3, 2048), (5, 3, 2048), (8, 3, 2048), (15, 3, 2048),
                (33, 2, 2048)]
 
 
@@ -305,6 +308,39 @@ def test_every_body_of_kernel64_matches_plain(cuda, B, n_steps, n, cluster,
     assert (br64.blind_rotate64.launches,
             br64.blind_rotate64.bodies[cluster]) == (before[0] + 1,
                                                      before[1] + 1)
+    assert torch.equal(got, br64.blind_rotate64_plain(
+        acc, amt, khat, rounded=rounded, approx=approx))
+
+
+@pytest.mark.parametrize("rounded,approx", [(None, None)] + MODES,
+                         ids=["k1"] + [f"k2-{m}" for m in MODE_IDS])
+def test_eight_blocks_one_past_a_wave(cuda, rounded, approx):
+    """The 8-block body at one item more than a wave of 8-clusters holds at
+    N = 2048 (the card runs the last item's cluster after one of the first
+    wave has ended), against the plain version, K1 and every mode of K2."""
+    n, n_steps = 2048, 2
+    gen = torch.Generator().manual_seed(8)
+    amt_of = lambda B: _boundary_amounts(gen, B, n_steps, n).to(cuda)
+    if rounded is None:
+        B = br.max_active_clusters(0, 8, n) + 1
+        acc = torch.randint(-2**31, 2**31, (B, 2, n), dtype=torch.int32,
+                            generator=gen).to(cuda)
+        amt, khat = amt_of(B), _random_khat(gen, n_steps, n).to(cuda)
+        before = br.blind_rotate32.bodies[8]
+        got = br.blind_rotate32(acc, amt, khat, cluster=8)
+        torch.cuda.synchronize()
+        assert br.blind_rotate32.bodies[8] == before + 1
+        assert torch.equal(got, br.blind_rotate32_plain(acc, amt, khat))
+        return
+    B = br64.max_active_clusters(0, 8, n, rounded, approx) + 1
+    acc = torch.randint(-2**63, 2**63 - 1, (B, 2, n), dtype=torch.int64,
+                        generator=gen).to(cuda)
+    amt, khat = amt_of(B), _random_khat64(gen, n_steps, n).to(cuda)
+    before = br64.blind_rotate64.bodies[8]
+    got = br64.blind_rotate64(acc, amt, khat, rounded=rounded, approx=approx,
+                              cluster=8)
+    torch.cuda.synchronize()
+    assert br64.blind_rotate64.bodies[8] == before + 1
     assert torch.equal(got, br64.blind_rotate64_plain(
         acc, amt, khat, rounded=rounded, approx=approx))
 
@@ -379,7 +415,7 @@ def test_picked_body_is_the_wrappers_choice(cuda):
     """With cluster=None the wrapper runs the body ``pick_cluster`` names,
     and the card runs at least one cluster of each body at N=2048."""
     n, gen = 2048, torch.Generator().manual_seed(0)
-    for c in (2, 4):
+    for c in br.CLUSTERS[1:]:
         assert br.max_active_clusters(0, c, n) >= 1
         assert br64.max_active_clusters(0, c, n, True, True) >= 1
         assert br64.max_active_clusters(0, c, n, False, False) >= 1

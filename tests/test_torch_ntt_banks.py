@@ -41,8 +41,8 @@ SIZES = [64, 128, 256, 512, 1024, 2048]
 THREADS = [512, 1024]
 # Polys a transform runs on in some body: the 3 or 6 digit polys, the 4, 5,
 # 8, 10 or 16 product polys of K1, K2 approx and K2 exact (a block of 4 holds
-# one output row's).
-NPOLYS = [3, 4, 5, 6, 8, 10, 16]
+# one output row's, a block of 8 half of them: 2, 3 or 4).
+NPOLYS = [2, 3, 4, 5, 6, 8, 10, 16]
 
 
 def _read_swizzle():
