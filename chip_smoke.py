@@ -58,19 +58,19 @@ the phase-8 keys and on a server packed with ``with_ntt2=False``:
     eager wall time a launch; then on step 0 at each B of SWEEP_B: K3 in
     the picked body and in every body of K3_SWEEP_BODIES, fresh and
     accumulating, and K4 in its three bodies, against the plain version;
-14. pbs_batch of B=256 through the K3 route and through the K4 route:
-    every output decrypts to table[m] and both equal pbs_batch with K2 in
-    its exact mode, bit for bit; K4's launches are counted over its run;
-    then the step loop's graph on both routes: two different batches of
-    one B through one cached graph, and a second B, each with the bits of
-    the eager loop and of K2's exact mode, a replay counting n launches of
-    K5 and of the route's product kernel;
+14. a bootstrap of B=256 whose blind rotation is the step loop with K3
+    and with K4 (``pbs._blind_rotate_stepwise``): every output decrypts to
+    table[m] and both equal pbs_batch with K2 in its exact mode, bit for
+    bit; K4's launches are counted over its run; then the step loop's
+    graph with each product kernel: two different batches of one B
+    through one cached graph, and a second B, each with the bits of the
+    eager loop and of K2's exact mode, a replay counting n launches of K5
+    and of the product kernel;
 15. the six requests through the ``with_ntt2=False`` server (the K3
     route): outputs equal Python's str, PBS counts
     equal PROD_COUNTS, K5 and K3 launch n times per PBS batch and K2 never;
     each request's wall time and the share of it the card spent in the
-    replayed step graphs;
-16. PBS/s of pbs_batch through both routes at B=STEPWISE_B.
+    replayed step graphs.
 
 The ported CLI (``fhestring_tpu_torch.cli``), which makes its own keys:
 
@@ -80,8 +80,8 @@ The ported CLI (``fhestring_tpu_torch.cli``), which makes its own keys:
     the row of benchmarks/methods_turbo_r5c.jsonl;
 18. the same at ``--params prod`` against the 52 rows of PROD_COUNTS.
 
-Keys saved and loaded, the TCP service, and the two newer routes of
-``pbs_batch`` (turbo and PARAM_PROD keys made again from seed 0):
+Keys saved and loaded, the TCP service, and the 32-bit limb route (turbo
+and PARAM_PROD keys made again from seed 0):
 
 19. persistence at turbo, at PARAM_PROD and at PARAM_PROD packed
     ``with_ntt2=False``: the packed server key saved
@@ -98,10 +98,7 @@ Keys saved and loaded, the TCP service, and the two newer routes of
     K3 per gadget level): K3 at that route's shapes against its plain
     version, then the six requests, TURBO_COUNTS, 3n launches of K3 per
     PBS batch and none of K1 or K5, with their share of time in the step
-    graphs; and ``pbs_batch(use_ntt=True)`` on a key packed
-    ``with_ntt=True`` only, at B=8 and 256 at PARAM_PROD and B=8 at turbo:
-    one launch of K2 (K1) a batch, bit-identical to K2's (K1's) exact mode
-    on the key packed ``with_ntt2=True``, with both times.
+    graphs.
 
 ``parallel.py`` over ``torch.distributed`` ranks on the card, and the
 noise margin (PARAM_PROD keys made again from seed 0):
@@ -207,7 +204,6 @@ TURBO_COUNTS = {
     "Gt": (189, 49), "Ge": (189, 49), "Eq": (131, 25), "Ne": (131, 25),
 }
 TABLE = [(7 * x + 3) % 16 for x in range(16)]
-STEPWISE_B = 2048  # batch of the step-wise routes' throughput (phase 16)
 # Batches of phase 13's sweep: at N=2048 ext_product's pick_body takes 1, 1,
 # 2, 1 and 1 groups of 8 items per block (two groups only where that pads
 # the batch no further), and the last group of 33 and of 99 items is partly
@@ -708,14 +704,38 @@ def stepwise_batches(dkeys, phase):
           f"bodies, fresh and accumulating, bit-exact at every B")
 
 
-STEPWISE_ROUTES = {"K3": {"use_pallas": True}, "K4": {"use_ntt2": True}}
+def step_products():
+    """The step loop's product kernels by label, each with the field of the
+    key it reads: K3 against bsk_limbs, K4 against bsk_ntt64."""
+    from fhestring_tpu_torch.crypto.kernels import ext_product as ep
+    from fhestring_tpu_torch.crypto.kernels import ntt_ext as ne
+
+    return {"K3": (ep.ext_product, "bsk_limbs"),
+            "K4": (ne.ntt_ext, "bsk_ntt64")}
+
+
+def stepwise_pbs_batch(cts, idx, bank, dkeys, label):
+    """pbs_batch with the step loop of that product kernel as its blind
+    rotation (the body is folded into the accumulator, so the loop takes
+    the mask amounts alone)."""
+    import torch
+
+    from fhestring_tpu_torch.crypto import pbs
+
+    p = dkeys.params
+    lwe_2n = pbs.modswitch(pbs.keyswitch(cts, dkeys), p)
+    acc = pbs.initial_acc(lwe_2n, idx, bank, p)
+    amounts = lwe_2n[:, :p.lwe_dimension].to(torch.int32)
+    product, field = step_products()[label]
+    return pbs.sample_extract(pbs._blind_rotate_stepwise(
+        acc, amounts, getattr(dkeys, field), product), p)
 
 
 def stepwise_pbs(client, dkeys, bank, phase):
-    """pbs_batch of 256 messages through TABLE by both step-wise routes and
-    by K2's exact mode: all decrypt right and the three are bit-identical.
-    Returns ntt_ext's launches over the K4 route's run (set to 0 just
-    before)."""
+    """A bootstrap of 256 messages through TABLE by the step loop with K3
+    and with K4, and pbs_batch by K2's exact mode: all decrypt right and
+    the three are bit-identical.  Returns ntt_ext's launches over the K4
+    route's run (set to 0 just before)."""
     import torch
 
     from fhestring_tpu_torch import torus
@@ -726,11 +746,14 @@ def stepwise_pbs(client, dkeys, bank, phase):
     msgs, cts = encrypt_msgs(client, 256, 14)
     zeros = torch.zeros(len(msgs), dtype=torch.int64, device=client.device)
     outs, line = {}, []
-    for label, route in {"K2 exact": {}, **STEPWISE_ROUTES}.items():
+    for label in ("K2 exact", "K3", "K4"):
         torch.cuda.synchronize()
         ne.ntt_ext.launches = 0
-        ms, out = cuda_ms(lambda: pbs.pbs_batch(cts, zeros, bank, dkeys,
-                                                **route))
+        if label == "K2 exact":
+            ms, out = cuda_ms(lambda: pbs.pbs_batch(cts, zeros, bank, dkeys))
+        else:
+            ms, out = cuda_ms(lambda: stepwise_pbs_batch(cts, zeros, bank,
+                                                         dkeys, label))
         if label == "K4":
             k4_launches = ne.ntt_ext.launches
         outs[label] = out
@@ -741,7 +764,7 @@ def stepwise_pbs(client, dkeys, bank, phase):
             fail(f"pbs_batch ({label}): {bad} of {len(msgs)} outputs "
                  f"decrypt wrong")
         line.append(f"{label} {ms:.1f} ms ({len(msgs) / ms * 1e3:.0f} PBS/s)")
-    for label in STEPWISE_ROUTES:
+    for label in ("K3", "K4"):
         if not torch.equal(outs[label], outs["K2 exact"]):
             fail(f"pbs_batch through the {label} route differs from K2's "
                  f"exact mode")
@@ -754,26 +777,24 @@ def stepwise_pbs(client, dkeys, bank, phase):
 
 
 def stepwise_graph(dkeys, phase, batches=(15, 5)):
-    """The step loop's CUDA graph on both routes: at the first B of
+    """The step loop's CUDA graph with K3 and with K4: at the first B of
     `batches` two different inputs through one cached graph, then one at the
     second B; every result has the bits of the eager loop and of K2's exact
     mode, each B captures once, and a replay counts n launches of K5 and of
-    the route's product kernel.  A capture or a replay that raises fails
-    the run."""
+    the product kernel.  A capture or a replay that raises fails the
+    run."""
     import torch
 
     from fhestring_tpu_torch.crypto import pbs
     from fhestring_tpu_torch.crypto.kernels import blind_rotate64 as br64
-    from fhestring_tpu_torch.crypto.kernels import ext_product as ep
-    from fhestring_tpu_torch.crypto.kernels import ntt_ext as ne
     from fhestring_tpu_torch.crypto.kernels import rotate_decompose as rd
 
     dev = dkeys.bsk_limbs.device
     N, n = dkeys.params.polynomial_size, dkeys.params.lwe_dimension
     gen = torch.Generator().manual_seed(phase)
     line = []
-    for label, use_ntt2 in (("K3", False), ("K4", True)):
-        product = ne.ntt_ext if use_ntt2 else ep.ext_product
+    for label, (product, field) in step_products().items():
+        key = getattr(dkeys, field)
         times = []
         for b, turns in zip(batches, (2, 1)):
             held = len(pbs._STEP_GRAPHS)
@@ -784,7 +805,7 @@ def stepwise_graph(dkeys, phase, batches=(15, 5)):
                                     generator=gen).to(dev)
                 before = rd.rotate_diff_decompose.launches, product.launches
                 t0 = time.perf_counter()
-                got = pbs._blind_rotate_stepwise(acc, amt, dkeys, use_ntt2)
+                got = pbs._blind_rotate_stepwise(acc, amt, key, product)
                 torch.cuda.synchronize()
                 times.append(f"B={b} {(time.perf_counter() - t0) * 1e3:.1f} ms"
                              + (" (with the capture)" if turn == 0 else ""))
@@ -795,11 +816,11 @@ def stepwise_graph(dkeys, phase, batches=(15, 5)):
                          f"of (K5, the product kernel), not {(n, n)}")
                 if turn:
                     ms = cuda_ms(lambda: pbs._blind_rotate_stepwise(
-                        acc, amt, dkeys, use_ntt2), 3)[0]
+                        acc, amt, key, product), 3)[0]
                     times[-1] = f"B={b} {ms:.2f} ms"
                 t0 = time.perf_counter()
-                eager = pbs._blind_rotate_stepwise(acc, amt, dkeys, use_ntt2,
-                                                   graph=False)
+                eager = pbs._run_steps(acc.clone(), amt.t().contiguous(),
+                                       key, product)
                 torch.cuda.synchronize()
                 if turn:
                     times.append(f"eager {(time.perf_counter() - t0) * 1e3:.1f}"
@@ -814,34 +835,8 @@ def stepwise_graph(dkeys, phase, batches=(15, 5)):
                      f"{len(pbs._STEP_GRAPHS) - held} graphs, not 1")
         line.append(f"{label} route " + ", ".join(times))
     print(f"phase {phase} step-loop graph: {n} steps replayed from one graph "
-          f"per (route, B), bit-identical to the eager loop and to K2 exact; "
-          + "; ".join(line))
-
-
-def stepwise_throughput(client, dkeys, bank, phase):
-    """PBS/s of pbs_batch through both step-wise routes at B=STEPWISE_B,
-    one timed run each (their kernels are warm from phase 14), with a
-    decrypt spot check."""
-    import torch
-
-    from fhestring_tpu_torch import torus
-    from fhestring_tpu_torch.crypto import pbs
-    from fhestring_tpu_torch.numpy_ref import core as ref
-
-    msgs, cts = encrypt_msgs(client, STEPWISE_B, 16)
-    zeros = torch.zeros(len(msgs), dtype=torch.int64, device=client.device)
-    line = []
-    for label, route in STEPWISE_ROUTES.items():
-        ms, out = cuda_ms(lambda: pbs.pbs_batch(cts, zeros, bank, dkeys,
-                                                **route))
-        out = torus.to_numpy(out)
-        if any(ref.shortint_decrypt(client.secret, out[i]) != TABLE[msgs[i]]
-               for i in range(0, len(msgs), 64)):
-            fail(f"pbs_batch ({label} route) at B={len(msgs)} decrypts wrong")
-        line.append(f"{label} route {ms:.1f} ms = "
-                    f"{len(msgs) / ms * 1e3:.1f} PBS/s")
-    print(f"phase {phase} step-wise throughput: pbs_batch B={len(msgs)}: "
-          + "; ".join(line))
+          f"per (product kernel, B), bit-identical to the eager loop and to "
+          f"K2 exact; " + "; ".join(line))
 
 
 requests.wall = {}  # phase -> {method: seconds} of its last run
@@ -914,10 +909,10 @@ def timed_replays(spans):
 
     replay = pbs._replay_steps
 
-    def timed_replay(entry, use_ntt2):
+    def timed_replay(entry):
         start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
         start.record()
-        replay(entry, use_ntt2)
+        replay(entry)
         end.record()
         spans.append((start, end))
 
@@ -933,8 +928,7 @@ def same_device_keys(got, want, what):
     neither, on the card and bit-identical."""
     import torch
 
-    for field in ("bsk_limbs", "ksk_limbs", "bsk_ntt32", "bsk_ntt64",
-                  "bsk_ntt"):
+    for field in ("bsk_limbs", "ksk_limbs", "bsk_ntt32", "bsk_ntt64"):
         a, b = getattr(got, field), getattr(want, field)
         if (a is None) != (b is None) or (a is not None and not (
                 a.is_cuda and torch.equal(a, b))):
@@ -1064,47 +1058,6 @@ def limb_route32_kernels(dkeys, phase, batch=8):
           f"rows, fresh and accumulating, bit-exact (max |diff| {worst})")
 
 
-def use_ntt_route(client, phase, batches=(8, 256)):
-    """pbs_batch(use_ntt=True) on a key packed ``with_ntt=True`` only
-    against pbs_batch through the family's whole-rotation kernel in its
-    exact mode on the NTT key packed ``with_ntt2=True``, bit for bit, with
-    both times; the use_ntt run must launch that kernel once a batch."""
-    import torch
-
-    from fhestring_tpu_torch.crypto import keys, pbs
-    from fhestring_tpu_torch.crypto.kernels import blind_rotate32 as br
-    from fhestring_tpu_torch.crypto.kernels import blind_rotate64 as br64
-
-    p, dev = client.params, client.device
-    kernel = br64.blind_rotate64 if p.torus_bits == 64 else br.blind_rotate32
-    ntt_keys = keys.pack_server_keys(client._server_raw, dev, with_ntt2=False,
-                                     with_ntt=True)
-    fused_keys = keys.pack_server_keys(client._server_raw, dev)
-    if ntt_keys.bsk_ntt is None or fused_keys.bsk_ntt is not None:
-        fail("pack_server_keys(with_ntt=) packed the wrong NTT keys")
-    bank = keys.pack_luts([TABLE], p, dev)
-    line = []
-    for b in batches:
-        msgs, cts = encrypt_msgs(client, b, b)
-        idx = torch.zeros(b, dtype=torch.int64, device=dev)
-        kernel.launches = 0
-        ms, got = cuda_ms(lambda: pbs.pbs_batch(cts, idx, bank, ntt_keys,
-                                                use_ntt=True))
-        if kernel.launches != 1:
-            fail(f"pbs_batch(use_ntt=True) at B={b} launched "
-                 f"{kernel.__name__} {kernel.launches} times, not once")
-        fused_ms, want = cuda_ms(lambda: pbs.pbs_batch(cts, idx, bank,
-                                                       fused_keys))
-        if not torch.equal(got, want):
-            fail(f"pbs_batch(use_ntt=True) at B={b} differs from "
-                 f"{kernel.__name__} exact")
-        line.append(f"B={b} {ms:.2f} ms ({b / ms * 1e3:.1f} PBS/s), "
-                    f"with_ntt2 key {fused_ms:.2f} ms")
-    print(f"phase {phase} use_ntt route ({p.name}): one {kernel.__name__} "
-          f"launch a batch on the with_ntt key, bit-identical to its exact "
-          f"mode on the with_ntt2 key; " + "; ".join(line) + f"; {CARD}")
-
-
 def column_shard_bodies(dkeys, phase, batch=KEYSHARD_B):
     """K3 on a one-column shard of the prod key's step 0 (the key-sharded
     blind rotation's ``bsk_limbs[:, :, cols]``) in the picked body and
@@ -1203,11 +1156,14 @@ def sharded_on_the_card(client, turbo, dkeys, tkeys, phase):
     bank = keys.pack_luts([TABLE], PARAM_PROD, dev)
     tbank = keys.pack_luts([TABLE], PARAM_TURBO, dev)
     prod = dict(rounded=True, approx=True)
+    # the same key without its NTT-domain key: pbs_batch's K5 + K3 route
+    limb_keys = keys.DeviceServerKeys(PARAM_PROD, dkeys.ksk_limbs,
+                                      bsk_limbs=dkeys.bsk_limbs)
     single = {}
     runs = {"turbo": lambda: pbs.pbs_batch(tcts, idx, tbank, tkeys),
             "prod": lambda: pbs.pbs_batch(cts, idx, bank, dkeys, **prod),
             "keysharded": lambda: pbs.pbs_batch(
-                kcts, idx[:KEYSHARD_B], bank, dkeys, use_pallas=True)}
+                kcts, idx[:KEYSHARD_B], bank, limb_keys)}
     for name, run in runs.items():
         run()  # warm-up (captures the step graph of the K3 route)
         single[name] = cuda_ms(run)
@@ -1232,9 +1188,9 @@ def sharded_on_the_card(client, turbo, dkeys, tkeys, phase):
     paths = {name: os.path.join(workdir, f"{name}.npz")
              for name in ("prod", "turbo")}
 
-    def pbs_call(fn, ct, source, **route):
+    def pbs_call(fn, ct, source, **mode):
         return (fn, (paths[source], torus.to_numpy(ct),
-                     np.zeros(len(ct), np.int64), [TABLE]), route)
+                     np.zeros(len(ct), np.int64), [TABLE]), mode)
 
     def poly_call(fn, *arrays):
         return (dryrun.poly_sharded, (fn,) + arrays,
@@ -1546,7 +1502,6 @@ def main() -> int:
             client, server_nk, [(rd.rotate_diff_decompose, n),
                                 (ep.ext_product, n), (br64.blind_rotate64, 0)],
             PROD_COUNTS, 15, spans)
-    stepwise_throughput(client, dkeys, bank, 16)
     del client, server, server_nk, dkeys, khat, bank
     pbs._STEP_GRAPHS.clear()
     torch.cuda.empty_cache()
@@ -1555,7 +1510,7 @@ def main() -> int:
     cli_on_the_card("turbo", TURBO_COUNTS, 17)
     cli_on_the_card("prod", PROD_COUNTS, 18)
 
-    # -- persistence, the service and the two newer routes, on the card --
+    # -- persistence, the service and the 32-bit limb route, on the card --
     import shutil
 
     from fhestring_tpu_torch.client import ClientKey
@@ -1564,9 +1519,9 @@ def main() -> int:
     os.makedirs(workdir, exist_ok=True)
     try:
         turbo = ClientKey(PARAM_TURBO, seed=0, device=dev)
-        persistence(turbo, "turbo", None, workdir, 19)
+        persistence(turbo, "turbo", True, workdir, 19)
         client = ClientKey(PARAM_PROD, seed=0, device=dev)
-        server = persistence(client, "prod", None, workdir, 19)
+        server = persistence(client, "prod", True, workdir, 19)
         persistence(client, "prod-no-ntt", False, workdir, 19)
     finally:
         shutil.rmtree(workdir)
@@ -1580,8 +1535,6 @@ def main() -> int:
                                       (rd.rotate_diff_decompose, 0),
                                       (br.blind_rotate32, 0)], TURBO_COUNTS,
                  21, spans)
-    use_ntt_route(client, 21)
-    use_ntt_route(turbo, 21, batches=(8,))
     del server_nk32
     pbs._STEP_GRAPHS.clear()
     torch.cuda.empty_cache()

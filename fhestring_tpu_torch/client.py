@@ -77,7 +77,7 @@ class ClientKey:
                     seed: int | None = 0, device=None) -> "ClientKey":
         return cls(params, seed, device=device)
 
-    def get_server_key(self, with_ntt2: bool | None = None,
+    def get_server_key(self, with_ntt2: bool = True,
                        cache_path: str | None = None, *, device=None):
         """Pack the evaluation keys onto ``device`` (default: the client's)
         and return the ServerKey that evaluates on it.  The positional
@@ -85,12 +85,12 @@ class ClientKey:
 
         with_ntt2: also pack the NTT-domain bootstrap key, which the
         whole-rotation kernels (K1, K2) read.  False leaves it out: the
-        set is then served by a step-wise route over the limb planes, K5 +
-        K3 at 64 bits, digits + K3 per gadget level at 32 bits
-        (``shortint.pbs_route``).  None (the
-        default) packs it on every device.  The JAX package's default packs
-        it only off CPU; here the CPU path runs the plain versions of K1
-        and K2, which read it.  The bits are the same either way.
+        set is then served by the step-wise route over the limb planes, K5
+        + K3 at 64 bits, digits + K3 per gadget level at 32 bits
+        (``crypto/pbs.blind_rotate``).  The JAX package's default packs it
+        only off CPU; here the CPU path runs the plain versions of K1 and
+        K2, which read it, so it is packed on every device.  The bits are
+        the same either way.
 
         cache_path: optional packed-key checkpoint (.npz, the format of
         ``serialize.save_packed_server_key``, which either package loads).
@@ -103,7 +103,6 @@ class ClientKey:
         from .server import ServerKey
 
         device = self.device if device is None else torch.device(device)
-        with_ntt2 = with_ntt2 is not False
         if cache_path and os.path.exists(cache_path):
             from . import serialize
 
@@ -113,10 +112,7 @@ class ClientKey:
                     f"packed-key cache {cache_path!r} was created for "
                     f"parameter set {srv.params.name!r}, not "
                     f"{self.params.name!r}")
-            dk = srv.backend.sc.keys
-            ntt_key = (dk.bsk_ntt32 if self.params.torus_bits == 32
-                       else dk.bsk_ntt64)
-            if not with_ntt2 or ntt_key is not None:
+            if not with_ntt2 or srv.backend.sc.keys.ntt_key is not None:
                 return srv
             # Packed without the NTT-domain key: loading it as it is would
             # silently drop the whole-rotation kernel.  Re-pack with it and

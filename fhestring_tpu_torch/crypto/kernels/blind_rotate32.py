@@ -198,7 +198,7 @@ def blind_rotate32(acc_hi: torch.Tensor, amounts: torch.Tensor,
 
     acc_hi: int32 [B, k+1, N] initial accumulator (u32 payloads);
     amounts: int32 [B, n] per-step rotation amounts in [0, 2N);
-    khat: int16 [n, 2, R, (k+1)*4, N] (keys.pack_bsk_ntt);
+    khat: int16 [n, 2, R, (k+1)*4, N] (keys.pack_bsk_hats);
     cluster: the kernel body, blocks per item, one of CLUSTERS (default:
     ``pick_cluster``); the result does not depend on it.
     Returns int32 [B, k+1, N]: the final accumulator payloads.

@@ -254,7 +254,7 @@ def blind_rotate64(acc: torch.Tensor, amounts: torch.Tensor,
 
     acc: int64 [B, k+1, N] initial accumulator (u64 bits);
     amounts: int32 [B, n] per-step rotation amounts in [0, 2N);
-    khat: int16 [n, 2, k+1, (k+1)*8, N] (keys.pack_bsk_ntt);
+    khat: int16 [n, 2, k+1, (k+1)*8, N] (keys.pack_bsk_hats);
     rounded, approx: the mode (module docstring);
     cluster: the kernel body, blocks per item, one of CLUSTERS (default:
     ``pick_cluster``); the result does not depend on it.

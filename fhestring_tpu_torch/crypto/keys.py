@@ -77,15 +77,20 @@ class DeviceServerKeys:
     # int8 [n, R, k+1, 8, 2N]: reversed byte-limb planes of the doubled polys
     # of the bootstrap key, rows level-major (the step-wise routes), or None.
     bsk_limbs: torch.Tensor | None = None
-    # int16, the layout of bsk_ntt32 or bsk_ntt64 by family: the NTT-domain
-    # key of the use_ntt route (pack_server_keys(with_ntt=True)), or None.
-    # The same tensor as the family's whole-rotation key when both are
-    # packed.
-    bsk_ntt: torch.Tensor | None = None
 
     @property
     def device(self) -> torch.device:
         return self.ksk_limbs.device
+
+    @property
+    def ntt_key(self) -> torch.Tensor | None:
+        """The family's NTT-domain key, or None where it was not packed."""
+        return getattr(self, ntt_field(self.params))
+
+
+def ntt_field(p: CryptoParams) -> str:
+    """The ``DeviceServerKeys`` field of the family's NTT-domain key."""
+    return "bsk_ntt32" if p.torus_bits == 32 else "bsk_ntt64"
 
 
 def balanced_limbs(values: torch.Tensor, num_limbs: int) -> torch.Tensor:
@@ -105,7 +110,7 @@ def _u16_bits(x: torch.Tensor) -> torch.Tensor:
     return torch.where(x >= 1 << 15, x - (1 << 16), x).to(torch.int16)
 
 
-def pack_bsk_ntt(bsk, device, planes: int) -> torch.Tensor:
+def pack_bsk_hats(bsk, device, planes: int) -> torch.Tensor:
     """u64 [n, R, k+1, N] key polys (numpy or int64 tensor) -> int16
     [n, 2, R, (k+1)*planes, N] kernel key, packed on ``device`` in chunks
     of steps: the hats of the balanced byte limbs of the u32 payload
@@ -210,7 +215,7 @@ def bsk_from_limbs(jax_limbs: torch.Tensor) -> torch.Tensor:
 
 def bsk_from_hats(khat: torch.Tensor, p: CryptoParams) -> torch.Tensor:
     """The raw key polys int64 (u64 bits) [n, R, k+1, N] from the family's
-    NTT-domain key (``pack_bsk_ntt``): the inverse transform of the first
+    NTT-domain key (``pack_bsk_hats``): the inverse transform of the first
     prime's hats gives each balanced limb mod 40961 (the 1/N the hats carry
     cancels the inverse's missing scaling), which is the limb itself."""
     planes = key_planes(p)
@@ -233,8 +238,7 @@ def bsk_from_hats(khat: torch.Tensor, p: CryptoParams) -> torch.Tensor:
 
 
 def pack_server_keys(srv_or_arrays, device, params: CryptoParams | None = None,
-                     with_ntt2: bool = True, with_ntt: bool = False
-                     ) -> DeviceServerKeys:
+                     with_ntt2: bool = True) -> DeviceServerKeys:
     """Pack the numpy ``bsk`` and ``ksk`` arrays of a ``ServerKeys`` (this
     package's numpy_ref or the JAX package's: the arrays are the same) onto
     ``device``, in the layout of the parameter set's torus family.
@@ -242,23 +246,17 @@ def pack_server_keys(srv_or_arrays, device, params: CryptoParams | None = None,
     the device keys are tagged with.
 
     with_ntt2: pack the NTT-domain bootstrap key (``bsk_ntt32`` or
-    ``bsk_ntt64``), which the whole-rotation kernels read.  with_ntt: the
-    same hats as ``bsk_ntt``, for the use_ntt route (one tensor when both
-    are asked for).  ``bsk_limbs`` is packed for a 64-bit set always, as
-    the JAX package's ``pack_server_keys`` always packs its limb key, and
-    for a 32-bit set when it has no ``bsk_ntt32``: its served route then
-    reads the limbs."""
+    ``bsk_ntt64``), which the whole-rotation kernels read.  ``bsk_limbs``
+    is packed for a 64-bit set always, as the JAX package's
+    ``pack_server_keys`` always packs its limb key, and for a 32-bit set
+    when it has no ``bsk_ntt32``: its served route then reads the limbs."""
     bsk, ksk = srv_or_arrays.bsk, srv_or_arrays.ksk
     p = params or srv_or_arrays.params
     keys = DeviceServerKeys(params=p, ksk_limbs=pack_ksk(ksk, p, device))
     if p.torus_bits == 64 or not with_ntt2:
         keys.bsk_limbs = pack_bsk_limbs(bsk, device, p.pbs_level)
-    if not (with_ntt2 or with_ntt):
-        return keys
-    khat = pack_bsk_ntt(bsk, device, key_planes(p))
-    if with_ntt:
-        keys.bsk_ntt = khat
     if with_ntt2:
+        khat = pack_bsk_hats(bsk, device, key_planes(p))
         if p.torus_bits == 32:
             keys.bsk_ntt32 = khat
         else:

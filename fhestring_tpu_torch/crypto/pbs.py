@@ -16,28 +16,31 @@ blind rotation carries only the u32 payload (int32); the 64-bit family
 (``PARAM_PROD``) carries the whole int64 accumulator.
 
 Each family has a whole-rotation kernel (K1 at 32 bits, K2 at 64 bits:
-one launch for all n steps), the default and the served route when the
-NTT-domain key is packed.  The step-wise routes run one prologue and one
-external product per LWE step, as the JAX package's do:
+one launch for all n steps), the route of a key packed with its NTT-domain
+key.  A key packed without it (``pack_server_keys(with_ntt2=False)``) runs
+the step-wise route over the limb planes, one prologue and one external
+product per LWE step, as the JAX package's ``use_pallas`` route does:
 
     for j in range(n):
         dl  = rotate_diff_decompose(acc, a_j)            (K5)
-        acc = acc + ext_product(dl, bsk_limbs[j])        (K3, use_pallas)
-                  | ntt_ext(dl, bsk_ntt64[j])            (K4, use_ntt2)
+        acc = acc + ext_product(dl, bsk_limbs[j])        (K3)
 
-At 32 bits (gadget 2^8 x 3) use_pallas makes the three levels' digits in
-torch ops and runs K3 once per level, against that level's rows of
-``bsk_limbs``: the route of a 32-bit key packed without its NTT-domain key,
-which the JAX package serves by an XLA einsum.  use_ntt (the CRT-NTT
-product, which the JAX package runs step by step in XLA) runs the family's
-whole-rotation kernel in exact mode against ``bsk_ntt``: the same
-arithmetic.  Every step-wise route is exact and gives the bits of the
-whole-rotation kernel's exact mode.  K3 and K4 add their product into the
-accumulator themselves.  On the card the n steps of a K3 or K4 route are
-captured once per (route, batch, key) into a CUDA graph over static buffers
-and replayed for every later batch of that shape: the host makes one graph
-launch instead of every launch of every step.  On the CPU the loop is a
-plain Python loop over the plain versions.
+At 32 bits (gadget 2^8 x 3) the three levels' digits are made in torch ops
+and K3 runs once per level, against that level's rows of ``bsk_limbs``
+(the JAX package runs an XLA einsum there).  The same loop with ``ntt_ext``
+(K4) against ``bsk_ntt64`` in place of K3 is the JAX package's ``use_ntt2``
+route; no key is served by it, and it stays a direct call
+(``_blind_rotate_stepwise``) for its tests and measurements.  The step-wise
+routes are exact and give the bits of the whole-rotation kernel's exact
+mode.  K3 and K4 add their product into the accumulator themselves.  On the
+card the n steps are captured once per (product kernel, batch, key) into a
+CUDA graph over static buffers and replayed for every later batch of that
+shape: the host makes one graph launch instead of every launch of every
+step.  On the CPU the loop is a plain Python loop over the plain versions.
+
+``blind_rotate`` alone maps the packed key fields to a route, and
+``served_mode`` alone maps them, the family and the device to the served
+path's mode.
 """
 
 from __future__ import annotations
@@ -174,11 +177,11 @@ def sample_extract(acc: torch.Tensor, p: CryptoParams) -> torch.Tensor:
     return torch.cat([a.reshape(acc.shape[0], -1), acc[:, k, :1]], dim=-1)
 
 
-def _levels(acc_shape: tuple, key: torch.Tensor, use_ntt2: bool) -> int:
+def _levels(acc_shape: tuple, key: torch.Tensor, product) -> int:
     """Gadget levels of a step-wise route: bsk_limbs holds (k+1) x levels
     rows (1 level at 64 bits; the 32-bit set's 3, whose route runs one K3
-    per level); the K4 route is 64-bit, 1 level."""
-    return 1 if use_ntt2 else key.shape[1] // acc_shape[1]
+    per level); K4 runs against the 64-bit key, 1 level."""
+    return 1 if product is ne.ntt_ext else key.shape[1] // acc_shape[1]
 
 
 def _digit_buffer(shape: tuple, levels: int, device) -> torch.Tensor:
@@ -220,14 +223,15 @@ def _digits_levels(acc: torch.Tensor, a: torch.Tensor,
 
 
 def _run_steps(acc: torch.Tensor, steps: torch.Tensor, key: torch.Tensor,
-               use_ntt2: bool, dl: torch.Tensor | None = None
-               ) -> torch.Tensor:
+               product, dl: torch.Tensor | None = None) -> torch.Tensor:
     """The n steps, eagerly, updating acc in place: K5 (or the 32-bit
-    route's digits), then K3 or K4 adding into acc, K3 once per gadget
-    level.  steps: int32 [n, B].  dl: the steps' digit buffer (allocated
-    here if not given).  Nothing in the loop reads back to the host, and
-    the kernels allocate nothing, so it can be captured."""
-    levels = _levels(acc.shape, key, use_ntt2)
+    route's digits), then the product kernel adding into acc: ``product``
+    is ``ep.ext_product`` (K3, key = bsk_limbs, once per gadget level) or
+    ``ne.ntt_ext`` (K4, key = bsk_ntt64).  steps: int32 [n, B].  dl: the
+    steps' digit buffer (allocated here if not given).  Nothing in the loop
+    reads back to the host, and the kernels allocate nothing, so it can be
+    captured."""
+    levels = _levels(acc.shape, key, product)
     if dl is None:
         dl = _digit_buffer(acc.shape, levels, acc.device)
     if levels > 1:
@@ -235,10 +239,9 @@ def _run_steps(acc: torch.Tensor, steps: torch.Tensor, key: torch.Tensor,
         for j in range(steps.shape[0]):
             _digits_levels(acc, steps[j], dl)
             for lev in range(levels):
-                ep.ext_product(dl[lev], key[j, lev * kp1:(lev + 1) * kp1],
-                               out=acc, accumulate=True)
+                product(dl[lev], key[j, lev * kp1:(lev + 1) * kp1], out=acc,
+                        accumulate=True)
         return acc
-    product = ne.ntt_ext if use_ntt2 else ep.ext_product
     for j in range(steps.shape[0]):
         rd.rotate_diff_decompose(acc, steps[j], out=dl)
         product(dl, key[j], out=acc, accumulate=True)
@@ -247,8 +250,10 @@ def _run_steps(acc: torch.Tensor, steps: torch.Tensor, key: torch.Tensor,
 
 @dataclasses.dataclass
 class _StepGraph:
-    """The captured steps of one (route, batch, key) and their buffers."""
+    """The captured steps of one (product kernel, batch, key) and their
+    buffers."""
     graph: torch.cuda.CUDAGraph
+    product: object            # the product kernel's wrapper (K3 or K4)
     key: torch.Tensor          # kept alive: the graph holds its address
     acc: torch.Tensor          # int64 [B, k+1, N], in and out
     steps: torch.Tensor        # int32 [n, B]
@@ -265,23 +270,22 @@ _STEP_GRAPHS: collections.OrderedDict[tuple, _StepGraph] = (
 
 
 def _capture_steps(shape: tuple, n: int, key: torch.Tensor,
-                   use_ntt2: bool) -> _StepGraph:
+                   product) -> _StepGraph:
     """Capture the n steps at accumulator shape [B, k+1, N] into a CUDA
     graph over buffers of its own.  The kernels are built and loaded first
     (a capture can do neither); no kernel runs during the capture, so the
     wrappers' launch counts are put back after it.  The 32-bit route's
     torch ops take their temporaries from the graph's own memory pool."""
     dev = key.device
-    levels = _levels(shape, key, use_ntt2)
+    levels = _levels(shape, key, product)
     if levels == 1:
         rd.prepare(dev)
     k4_body = None
-    if use_ntt2:
+    if product is ne.ntt_ext:
         ne.prepare(dev, shape[-1])
         k4_body = ne.pick_cluster(shape[0], shape[-1], dev.index)
     else:
         ep.prepare(dev)
-    product = ne.ntt_ext if use_ntt2 else ep.ext_product
     acc = torch.zeros(shape, dtype=torch.int64, device=dev)
     steps = torch.zeros((n, shape[0]), dtype=torch.int32, device=dev)
     dl = _digit_buffer(shape, levels, dev)
@@ -290,140 +294,114 @@ def _capture_steps(shape: tuple, n: int, key: torch.Tensor,
     bodies = dict(ne.ntt_ext.bodies)
     try:
         with torch.cuda.graph(graph):
-            _run_steps(acc, steps, key, use_ntt2, dl)
+            _run_steps(acc, steps, key, product, dl)
     finally:
         rd.rotate_diff_decompose.launches, product.launches = counts
         ne.ntt_ext.bodies.update(bodies)
-    return _StepGraph(graph, key, acc, steps, dl, k4_body, levels)
+    return _StepGraph(graph, product, key, acc, steps, dl, k4_body, levels)
 
 
 def _step_graph(shape: tuple, n: int, key: torch.Tensor,
-                use_ntt2: bool) -> _StepGraph:
-    """The cached graph of that accumulator shape, route and key tensor."""
-    ident = (use_ntt2, tuple(shape), n, key.device, key.data_ptr())
+                product) -> _StepGraph:
+    """The cached graph of that accumulator shape, product kernel and key
+    tensor."""
+    ident = (product, tuple(shape), n, key.device, key.data_ptr())
     entry = _STEP_GRAPHS.get(ident)
     if entry is None:
-        entry = _STEP_GRAPHS[ident] = _capture_steps(shape, n, key, use_ntt2)
+        entry = _STEP_GRAPHS[ident] = _capture_steps(shape, n, key, product)
         while len(_STEP_GRAPHS) > STEP_GRAPHS_KEPT:
             _STEP_GRAPHS.popitem(last=False)
     _STEP_GRAPHS.move_to_end(ident)
     return entry
 
 
-def _replay_steps(entry: _StepGraph, use_ntt2: bool) -> None:
+def _replay_steps(entry: _StepGraph) -> None:
     """Replay the captured steps on the entry's buffers.  A replay runs no
     wrapper, so it counts its kernel nodes itself: n launches of K5 (none
-    on the 32-bit route, whose digits are torch ops) and n of the route's
-    product kernel per gadget level (K4's also by body)."""
+    on the 32-bit route, whose digits are torch ops) and n of the product
+    kernel per gadget level (K4's also by body)."""
     entry.graph.replay()
     n = entry.steps.shape[0]
     if entry.levels == 1:
         rd.rotate_diff_decompose.launches += n
-    if use_ntt2:
-        ne.ntt_ext.launches += n
-        ne.ntt_ext.bodies[entry.k4_body] += n
-    else:
-        ep.ext_product.launches += n * entry.levels
+    entry.product.launches += n * entry.levels
+    if entry.k4_body is not None:
+        entry.product.bodies[entry.k4_body] += n
 
 
 def _blind_rotate_stepwise(acc: torch.Tensor, amounts: torch.Tensor,
-                           keys: DeviceServerKeys, use_ntt2: bool,
-                           graph: bool = True) -> torch.Tensor:
+                           key: torch.Tensor, product) -> torch.Tensor:
     """A step-wise route: per step the digits (K5, or torch ops on the
-    32-bit route), then K3 (once per gadget level) or K4 adding into the
-    accumulator.  On a CUDA device the steps are replayed from a captured
-    graph (graph=False: launched one by one, for comparison); a failed
-    capture or replay raises.  On the CPU the steps run one by one on the
-    plain versions."""
-    key = keys.bsk_ntt64 if use_ntt2 else keys.bsk_limbs
-    if key is None:
-        raise ValueError("the step-wise route needs "
-                         + ("bsk_ntt64: pack_server_keys(with_ntt2=True)"
-                            if use_ntt2 else
-                            "bsk_limbs: pack_server_keys packs it for a "
-                            "64-bit set, and for a 32-bit set with "
-                            "with_ntt2=False"))
+    32-bit route), then ``product`` adding into the accumulator:
+    ``ep.ext_product`` (K3, once per gadget level) against bsk_limbs, or
+    ``ne.ntt_ext`` (K4) against bsk_ntt64.  On a CUDA device the steps are
+    replayed from a captured graph (``_run_steps`` launches them one by
+    one); a failed capture or replay raises.  On the CPU the steps run one
+    by one on the plain versions."""
     steps = amounts.t().contiguous()                    # [n, B]
-    if acc.device.type != "cuda" or not graph or acc.shape[0] == 0:
-        return _run_steps(acc.clone(), steps, key, use_ntt2)
-    entry = _step_graph(acc.shape, steps.shape[0], key, use_ntt2)
+    if acc.device.type != "cuda" or acc.shape[0] == 0:
+        return _run_steps(acc.clone(), steps, key, product)
+    entry = _step_graph(acc.shape, steps.shape[0], key, product)
     entry.acc.copy_(acc)
     entry.steps.copy_(steps)
-    _replay_steps(entry, use_ntt2)
+    _replay_steps(entry)
     return entry.acc.clone()
 
 
-def _blind_rotate_ntt(acc: torch.Tensor, amounts: torch.Tensor,
-                      keys: DeviceServerKeys) -> torch.Tensor:
-    """The use_ntt route: the CRT-NTT external product against
-    ``keys.bsk_ntt``, exact.  The JAX package runs it step by step in XLA
-    (``step_ntt``); its arithmetic (two primes, centered CRT, shift planes
-    recombined mod 2^64) is the whole-rotation kernels' exact mode, so the
-    port runs it through the family's kernel (K1 or K2) on the use_ntt
-    key.  The wrapper runs its plain version on CPU tensors only."""
-    if keys.bsk_ntt is None:
-        raise ValueError("use_ntt needs bsk_ntt: "
-                         "pack_server_keys(with_ntt=True)")
-    if keys.params.torus_bits == 64:
-        return br64.blind_rotate64(acc, amounts, keys.bsk_ntt)
-    hi = br.blind_rotate32(torus.hi32(acc).contiguous(), amounts,
-                           keys.bsk_ntt)
-    return torus.from_hi32(hi)
+def served_mode(keys: DeviceServerKeys, device: torch.device
+                ) -> tuple[bool, bool]:
+    """(rounded, approx) of the served path's blind rotation on ``device``:
+    rounded + approx for a 64-bit set on a CUDA device with its NTT-domain
+    key (K2 in the JAX package's accelerator mode, calibrated on device in
+    benchmarks/calibration_prod_r5.log), exact otherwise: K1 runs the exact
+    mode only, the limb route is exact, and on the CPU the JAX package's
+    path is exact.  So CPU outputs are bit-identical to the JAX package's
+    CPU path whichever keys were packed."""
+    fast = (torch.device(device).type == "cuda"
+            and keys.params.torus_bits == 64 and keys.bsk_ntt64 is not None)
+    return fast, fast
 
 
 def blind_rotate(acc: torch.Tensor, lwe_2n: torch.Tensor,
                  keys: DeviceServerKeys, rounded: bool = False,
-                 approx: bool = False, use_pallas: bool = False,
-                 use_ntt2: bool = False, use_fused: bool = False,
-                 use_ntt: bool = False) -> torch.Tensor:
+                 approx: bool = False) -> torch.Tensor:
     """acc: int64 [B, k+1, N]; lwe_2n: int64 [B, n+1] in [0, 2N).  Rotates
     acc by -phase homomorphically: first by -b (the body, column n), then
     the n steps over the mask coefficients.
 
+    The route is the key's:
+
+    - with the family's NTT-domain key (``keys.ntt_key``): the family's
+      whole-rotation kernel, K1 or K2;
+    - without it, with ``bsk_limbs``: the limb-plane route, K5 then K3 at
+      64 bits; at 32 bits the digits in torch ops and one K3 per gadget
+      level.  Exact only;
+    - with neither: refused.
+
     rounded/approx select the 64-bit kernel's mode, with the JAX meaning
     (``numpy_ref.blind_rotate(rounded=rounded, min_shift=3 if approx else
-    0)``); the 32-bit kernel runs the exact mode only.
-
-    The route, by the JAX package's keyword names and with its precedence
-    use_fused > use_ntt2 > use_ntt > use_pallas:
-
-    - use_fused, or no keyword: the whole-rotation kernel of the family
-      (K1 or K2);
-    - use_ntt2: the 64-bit K4 route (K5, then ``ntt_ext`` against
-      ``keys.bsk_ntt64``);
-    - use_ntt: the CRT-NTT product against ``keys.bsk_ntt``
-      (``_blind_rotate_ntt``: the family's kernel in exact mode), either
-      family;
-    - use_pallas: the limb-plane route against ``keys.bsk_limbs``: K5 then
-      ``ext_product`` (K3) at 64 bits; at 32 bits the digits in torch ops
-      and one K3 per gadget level (the JAX package runs an XLA einsum
-      there).
-
-    Every route but the whole-rotation kernel runs the exact mode only,
-    and all of them give the bits of that kernel's exact mode."""
+    0)``); K1 and the limb route run the exact mode only.  Every route's
+    exact mode gives the same bits."""
     p = keys.params
     _check_kernel_shape(p)
     two_n = 2 * p.polynomial_size
     acc = negacyclic_rotate(acc, (two_n - lwe_2n[:, -1]) & (two_n - 1))
     amounts = lwe_2n[:, :p.lwe_dimension].to(torch.int32).contiguous()
-    stepwise = not use_fused and (use_ntt2 or use_ntt or use_pallas)
-    if stepwise and (rounded or approx):
-        raise ValueError("the step-wise routes run the exact mode only")
-    if stepwise and use_ntt2 and p.torus_bits != 64:
-        raise ValueError("the K4 route (use_ntt2) is the 64-bit family's "
-                         "only")
-    if stepwise and use_ntt and not use_ntt2:
-        return _blind_rotate_ntt(acc.contiguous(), amounts, keys)
-    if stepwise:
-        return _blind_rotate_stepwise(acc.contiguous(), amounts, keys,
-                                      use_ntt2)
+    khat = keys.ntt_key
+    if khat is None:
+        if keys.bsk_limbs is None:
+            raise ValueError("the server key has neither its NTT-domain key "
+                             "nor bsk_limbs; pack it with pack_server_keys")
+        if rounded or approx:
+            raise ValueError("the limb-plane route runs the exact mode only")
+        return _blind_rotate_stepwise(acc.contiguous(), amounts,
+                                      keys.bsk_limbs, ep.ext_product)
     if p.torus_bits == 64:
-        return br64.blind_rotate64(acc.contiguous(), amounts, keys.bsk_ntt64,
+        return br64.blind_rotate64(acc.contiguous(), amounts, khat,
                                    rounded=rounded, approx=approx)
     if rounded or approx:
         raise ValueError("the 32-bit blind rotation runs the exact mode only")
-    hi = br.blind_rotate32(torus.hi32(acc).contiguous(), amounts,
-                           keys.bsk_ntt32)
+    hi = br.blind_rotate32(torus.hi32(acc).contiguous(), amounts, khat)
     return torus.from_hi32(hi)
 
 
@@ -448,16 +426,13 @@ def initial_acc(lwe_2n: torch.Tensor, lut_idx: torch.Tensor,
 
 def pbs_batch(ct: torch.Tensor, lut_idx: torch.Tensor, lut_bank: torch.Tensor,
               keys: DeviceServerKeys, rounded: bool = False,
-              approx: bool = False, use_pallas: bool = False,
-              use_ntt2: bool = False, use_fused: bool = False,
-              use_ntt: bool = False) -> torch.Tensor:
+              approx: bool = False) -> torch.Tensor:
     """Apply per-item LUTs to a batch of big-key LWE ciphertexts.
 
     ct: int64 [B, kN+1]; lut_idx: int64 [B] into lut_bank int64 [L, 2N].
     Returns int64 [B, kN+1] encrypting table[m] with fresh PBS noise.
-    rounded/approx: the blind rotation's mode; use_fused (the default),
-    use_ntt2, use_ntt, use_pallas: the route, as ``blind_rotate`` reads
-    them.
+    rounded/approx: the blind rotation's mode; the route is the key's
+    (``blind_rotate``).
     """
     p = keys.params
     _check_kernel_shape(p)
@@ -466,6 +441,4 @@ def pbs_batch(ct: torch.Tensor, lut_idx: torch.Tensor, lut_bank: torch.Tensor,
     lwe_nob = torch.cat([lwe_2n[:, :-1], lwe_2n.new_zeros((ct.shape[0], 1))],
                         dim=1)
     return sample_extract(
-        blind_rotate(acc, lwe_nob, keys, rounded=rounded, approx=approx,
-                     use_pallas=use_pallas, use_ntt2=use_ntt2,
-                     use_fused=use_fused, use_ntt=use_ntt), p)
+        blind_rotate(acc, lwe_nob, keys, rounded=rounded, approx=approx), p)

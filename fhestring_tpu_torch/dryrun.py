@@ -100,7 +100,7 @@ def identity_bootstrap():
     at no bootstrap's cost; the outputs do not decrypt."""
     real = shortint.pbs_batch, pbs.pbs_batch
     shortint.pbs_batch = pbs.pbs_batch = (
-        lambda flat, idx, bank, keys, **route: flat)
+        lambda flat, idx, bank, keys, **mode: flat)
     try:
         yield
     finally:
@@ -379,12 +379,13 @@ def _pbs_inputs(device, key_path: str, ct: np.ndarray, lut_idx: np.ndarray,
 
 
 def batch_sharded(group, device, key_path: str, ct: np.ndarray,
-                  lut_idx: np.ndarray, tables: list, **route) -> dict:
-    """``parallel.pbs_batch_sharded`` with the route keywords, the whole
-    batch's result as uint64 numpy in "out"."""
+                  lut_idx: np.ndarray, tables: list, rounded: bool = False,
+                  approx: bool = False) -> dict:
+    """``parallel.pbs_batch_sharded`` in that mode, the whole batch's
+    result as uint64 numpy in "out"."""
     server, ct, idx, bank = _pbs_inputs(device, key_path, ct, lut_idx, tables)
     rec = _timed(group, device, parallel.pbs_batch_sharded, ct, idx, bank,
-                 server.backend.sc.keys, **route)
+                 server.backend.sc.keys, rounded=rounded, approx=approx)
     rec["out"] = torus.to_numpy(rec["out"])
     return rec
 

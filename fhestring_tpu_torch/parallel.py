@@ -149,13 +149,14 @@ def _all_to_all(send: torch.Tensor, group) -> torch.Tensor:
 
 def pbs_batch_sharded(ct: torch.Tensor, lut_idx: torch.Tensor,
                       lut_bank: torch.Tensor, keys: DeviceServerKeys, group,
-                      **pbs_kwargs) -> torch.Tensor:
+                      rounded: bool = False, approx: bool = False
+                      ) -> torch.Tensor:
     """``pbs_batch`` with the batch axis sharded over the group: rank r
     bootstraps rows [r*b, (r+1)*b) (b = ceil(B / world)) with the keys and
     the LUT bank replicated, and an ``all_gather`` returns the whole batch
     int64 [B, kN+1] on every rank.  A batch the group's size does not
-    divide is padded with zero rows, which are cut off again.  The route
-    keywords go to ``pbs_batch`` unchanged.  Bit-identical to one process's
+    divide is padded with zero rows, which are cut off again.  rounded and
+    approx are ``pbs_batch``'s mode.  Bit-identical to one process's
     ``pbs_batch`` in the same mode: every row is bootstrapped alone."""
     rank, world = _rank_world(group)
     B = ct.shape[0]
@@ -167,7 +168,7 @@ def pbs_batch_sharded(ct: torch.Tensor, lut_idx: torch.Tensor,
         lut_idx = torch.cat([lut_idx, lut_idx.new_zeros(per * world - B)])
     rows = slice(rank * per, (rank + 1) * per)
     mine = pbs.pbs_batch(ct[rows], lut_idx[rows], lut_bank, keys,
-                         **pbs_kwargs)
+                         rounded=rounded, approx=approx)
     return all_gather(mine, group).reshape(per * world, -1)[:B]
 
 

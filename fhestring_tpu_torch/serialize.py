@@ -27,9 +27,11 @@ NTT-domain key (two primes, ``crypto/ntt.py``) is not the JAX package's
 fields that hold it as ``torch_hats_fields``, a name the JAX loader never
 reads (it reads only the ``_PACKED_OPTIONAL`` names, and the port writes
 none of them).  On load the port rebuilds that key on the device from the
-limb planes (the raw bootstrap key, then its transform) for the fields the
-list names, or that a JAX file's optional names ask for (``bsk_ntt32`` /
-``bsk_ntt2``: the whole-rotation key; ``bsk_ntt``: the use_ntt key).
+limb planes (the raw bootstrap key, then its transform) where the list
+names the family's field, or where a JAX file holds the JAX package's key
+of the whole-rotation kernel (``bsk_ntt32`` / ``bsk_ntt2``).  The JAX
+package's ``bsk_ntt`` (its use_ntt route's key) asks for nothing: that key
+loads with its limb planes only, and is served by the limb-plane route.
 Rebuilding on an H100 loads a file faster than reading a stored copy
 would: ``PERF.md``, PR 7.
 """
@@ -111,10 +113,9 @@ def save_server_key(path: str, ck) -> None:
     )
 
 
-def load_server_key(path: str, with_ntt2: bool | None = None, *,
-                    device=None):
+def load_server_key(path: str, with_ntt2: bool = True, *, device=None):
     """A ServerKey packed on ``device`` from the raw keys; with_ntt2 as
-    ``ClientKey.get_server_key``'s (None packs the NTT-domain key)."""
+    ``ClientKey.get_server_key``'s."""
     from .client import default_device
     from .crypto.keys import pack_server_keys
     from .server import ServerKey
@@ -124,8 +125,7 @@ def load_server_key(path: str, with_ntt2: bool | None = None, *,
     params = params_from_json(str(data["params"]))
     raw = ref.ServerKeys(params, data["bsk"], data["ksk"])
     return ServerKey(pack_server_keys(raw, default_device(device),
-                                      with_ntt2=with_ntt2 is not False),
-                     params)
+                                      with_ntt2=with_ntt2), params)
 
 
 # ---------------------------------------------------------------------------
@@ -134,10 +134,6 @@ def load_server_key(path: str, with_ntt2: bool | None = None, *,
 
 # The JAX package's optional names (its loader reads these and no others).
 _PACKED_OPTIONAL = ("bsk_ntt", "bsk_ntt2", "bsk_ntt32")
-# The DeviceServerKeys fields that hold the port's NTT-domain key: one
-# tensor, the hats of the family's byte limbs (``keys.pack_bsk_ntt``); the
-# file lists the ones present as "torch_hats_fields".
-_HATS_FIELDS = ("bsk_ntt32", "bsk_ntt64", "bsk_ntt")
 
 
 def _numpy(t: torch.Tensor) -> np.ndarray:
@@ -152,10 +148,10 @@ def save_packed_server_key(path: str, server_key) -> None:
 
     dk = server_key.backend.sc.keys
     p = dk.params
+    hats = dk.ntt_key
     if dk.bsk_limbs is not None:
         bsk_limbs = K.jax_bsk_limbs(dk.bsk_limbs, p.pbs_level)
     else:  # a 32-bit key packed with its NTT key only
-        hats = dk.bsk_ntt32 if dk.bsk_ntt32 is not None else dk.bsk_ntt
         bsk_limbs = K.jax_bsk_limbs(
             K.pack_bsk_limbs(K.bsk_from_hats(hats, p), hats.device,
                              p.pbs_level), p.pbs_level)
@@ -167,12 +163,8 @@ def save_packed_server_key(path: str, server_key) -> None:
         bsk_limbs=_numpy(bsk_limbs),
         ksk_limbs=_numpy(dk.ksk_limbs[:, :cols]),
     )
-    fields = [f for f in _HATS_FIELDS if getattr(dk, f) is not None]
-    if fields:
-        hats = getattr(dk, fields[0])
-        if not all(torch.equal(getattr(dk, f), hats) for f in fields[1:]):
-            raise ValueError(f"the NTT-domain keys {fields} differ")
-        arrs.update(torch_hats_fields=json.dumps(fields))
+    if hats is not None:
+        arrs.update(torch_hats_fields=json.dumps([K.ntt_field(p)]))
     # Write through an open handle: np.savez(path) appends ".npz" when the
     # path lacks it, which would desync the filename from the existence
     # check in client.get_server_key (silent repack on every start).
@@ -197,20 +189,17 @@ def load_packed_server_key(path: str, *, device=None):
                          dtype=torch.int8, device=device)
     padded[:, :ksk.shape[1]] = ksk
     dk = K.DeviceServerKeys(params=p, ksk_limbs=padded)
-    # the NTT-domain fields the file asks for: the port's own list, and
-    # the ones a JAX file's optional names ask for
-    fields = (json.loads(str(data["torch_hats_fields"]))
+    # the NTT-domain key, where the port's list names the family's field or
+    # a JAX file holds its whole-rotation key.  Older files of the port
+    # may list "bsk_ntt" beside the family's field: it asks for nothing.
+    family = K.ntt_field(p)
+    listed = (json.loads(str(data["torch_hats_fields"]))
               if "torch_hats_fields" in data else [])
-    family = "bsk_ntt32" if p.torus_bits == 32 else "bsk_ntt64"
-    asked = {family: "bsk_ntt32" if p.torus_bits == 32 else "bsk_ntt2",
-             "bsk_ntt": "bsk_ntt"}
-    fields += [f for f, jax_name in asked.items()
-               if jax_name in data and f not in fields]
-    if fields:  # rebuilt on the device from the limb planes
-        hats = K.pack_bsk_ntt(K.bsk_from_limbs(jax_limbs.to(device)),
-                              device, K.key_planes(p))
-        for field in fields:
-            setattr(dk, field, hats)
+    if family in listed or ("bsk_ntt32" if p.torus_bits == 32
+                            else "bsk_ntt2") in data:
+        # rebuilt on the device from the limb planes
+        setattr(dk, family, K.pack_bsk_hats(
+            K.bsk_from_limbs(jax_limbs.to(device)), device, K.key_planes(p)))
     if p.torus_bits == 64 or dk.bsk_ntt32 is None:
         rows = K.level_major(p.pbs_level, p.glwe_dimension + 1, device)
         two_n = jax_limbs.shape[-1]

@@ -21,7 +21,7 @@ import torch
 
 from . import metrics, parallel, torus
 from .crypto.keys import DeviceServerKeys, pack_luts
-from .crypto.pbs import pbs_batch
+from .crypto.pbs import pbs_batch, served_mode
 from .params import CryptoParams
 
 MAX_NOISE_VAR = 34.0  # default for sets without a calibrated noise_budget
@@ -46,36 +46,6 @@ def _with_body_added(ct: torch.Tensor, value: int) -> torch.Tensor:
     out = ct.clone()
     out[..., -1] += torus.wrap(value)
     return out
-
-
-def pbs_route(keys: DeviceServerKeys, on_cpu: bool) -> dict:
-    """The ``pbs_batch`` keywords of the served path: the blind-rotation
-    route and mode, as the JAX package chooses them
-    (``fhestring_tpu/shortint.py`` ``_pbs_padded``):
-
-    - 32-bit set with the NTT key (``bsk_ntt32``): the whole-rotation
-      kernel K1, exact.
-    - 64-bit set with the NTT key (``bsk_ntt64``): the whole-rotation kernel
-      K2, rounded + approx on the card (the JAX package's accelerator mode,
-      calibrated on device in benchmarks/calibration_prod_r5.log), exact on
-      CPU, as the JAX package's CPU path.
-    - Either set without it: the step-wise route over the limb planes
-      (``use_pallas``: K5 + K3 at 64 bits, digits + K3 per gadget level at
-      32 bits), exact, where the JAX package runs its Pallas kernel (64
-      bits) or an XLA einsum (32 bits).
-
-    On CPU every route runs its kernels' plain versions, exact, so CPU
-    outputs are bit-identical to the JAX package's CPU path whichever keys
-    were packed."""
-    turbo = keys.params.torus_bits == 32
-    if (keys.bsk_ntt32 if turbo else keys.bsk_ntt64) is None:
-        if keys.bsk_limbs is None:
-            raise ValueError("the server key has neither its NTT-domain key "
-                             "nor bsk_limbs; pack it with pack_server_keys")
-        return {"use_pallas": True}
-    if turbo:
-        return {}
-    return {"rounded": not on_cpu, "approx": not on_cpu}
 
 
 class ShortintContext:
@@ -158,10 +128,11 @@ class ShortintContext:
         keyswitch and accumulator memory).  On CPU the batch is padded to a
         power of two, as the JAX package pads on CPU, so counts and padded
         counts match it there.  The CUDA kernels take any batch, so on the
-        card nothing is padded.  The blind-rotation route and mode are
-        ``pbs_route``'s.  Under ``parallel.lane_sharded`` the batch is
-        sharded over the process group (``parallel.pbs_batch_sharded``)
-        and counted once, as one process counts it.  Each batch that
+        card nothing is padded.  The blind-rotation mode is
+        ``served_mode``'s, the route the key's.  Under
+        ``parallel.lane_sharded`` the batch is sharded over the process
+        group (``parallel.pbs_batch_sharded``) and counted once, as one
+        process counts it.  Each batch that
         reaches ``pbs_batch`` is one ``pbs.dispatch`` span."""
         n = flat.shape[0]
         on_cpu = flat.device.type == "cpu"
@@ -181,11 +152,13 @@ class ShortintContext:
                 flat = torch.cat([flat,
                                   flat.new_zeros((padded - n, flat.shape[1]))])
                 idx = torch.cat([idx, idx.new_zeros(padded - n)])
-            route = pbs_route(self.keys, on_cpu)
+            rounded, approx = served_mode(self.keys, flat.device)
             if self.group is not None:
-                return parallel.pbs_batch_sharded(flat, idx, bank, self.keys,
-                                                  self.group, **route)[:n]
-            return pbs_batch(flat, idx, bank, self.keys, **route)[:n]
+                return parallel.pbs_batch_sharded(
+                    flat, idx, bank, self.keys, self.group, rounded=rounded,
+                    approx=approx)[:n]
+            return pbs_batch(flat, idx, bank, self.keys, rounded=rounded,
+                             approx=approx)[:n]
 
     def apply_lut(self, a: Blocks, table) -> Blocks:
         """Univariate LUT via one batched PBS. table: 16 ints in [0, 16)."""

@@ -58,7 +58,7 @@ def main() -> None:
     bsk = torch.randint(-2**63, 2**63 - 1, (1, 2, 2, N), dtype=torch.int64,
                         generator=gen)
     limbs = keys.pack_bsk_limbs(bsk, dev)[0]
-    khat = keys.pack_bsk_ntt(bsk, dev, keys.KEY_PLANES64)[0]
+    khat = keys.pack_bsk_hats(bsk, dev, keys.KEY_PLANES64)[0]
     crossing = None
     for b in [int(a) for a in sys.argv[1:]] or BATCHES:
         acc = torch.randint(-2**63, 2**63 - 1, (b, 2, N), dtype=torch.int64,

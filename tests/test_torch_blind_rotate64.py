@@ -147,7 +147,7 @@ def test_key_limbs_match_jax_balanced_limbs_u64():
     N = p.polynomial_size
     bsk = rng.integers(0, 1 << 64, size=(3, KP1, KP1, N), dtype=np.uint64)
     bsk[0, 0, 0, :len(edge)] = edge
-    khat = keys.pack_bsk_ntt(bsk, "cpu", keys.KEY_PLANES64)
+    khat = keys.pack_bsk_hats(bsk, "cpu", keys.KEY_PLANES64)
     assert tuple(khat.shape) == (3, 2, KP1, KP1 * 8, N)
     assert khat.dtype == torch.int16
     tw = torch.from_numpy(ntt.twiddles(N))

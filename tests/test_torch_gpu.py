@@ -470,7 +470,7 @@ def test_stepwise_kernels_match_plain(stepwise, B, n_steps, n):
     bsk = torch.randint(-2**63, 2**63 - 1, (n_steps, 2, 2, n),
                         dtype=torch.int64, generator=gen)
     limbs = keys.pack_bsk_limbs(bsk, stepwise)
-    khat = keys.pack_bsk_ntt(bsk, stepwise, keys.KEY_PLANES64)
+    khat = keys.pack_bsk_hats(bsk, stepwise, keys.KEY_PLANES64)
     before = _launches()
     for j in range(n_steps):
         a = amt[j].to(stepwise)
@@ -551,8 +551,33 @@ def test_ext_product_matches_plain_at_the_worst_case(stepwise, n, B):
                        ep.ext_product_plain(dl, limbs[1]))
 
 
+def _product(route):
+    """The step loop's product kernel and its key field: K3 against
+    bsk_limbs, K4 against bsk_ntt64."""
+    return ((ne.ntt_ext, "bsk_ntt64") if route == "k4"
+            else (ep.ext_product, "bsk_limbs"))
+
+
+def _eager(acc, amt, key, product):
+    """The step loop launched one kernel at a time (no graph)."""
+    return pbs._run_steps(acc.clone(), amt.t().contiguous(), key, product)
+
+
+def _stepwise_pbs(cts, idx, bank, dev, route):
+    """``pbs_batch`` with the step loop of that route as its blind rotation
+    (the body is folded into the accumulator, so the loop takes the mask
+    amounts alone)."""
+    p = dev.params
+    lwe_2n = pbs.modswitch(pbs.keyswitch(cts, dev), p)
+    acc = pbs.initial_acc(lwe_2n, idx, bank, p)
+    amounts = lwe_2n[:, :p.lwe_dimension].to(torch.int32)
+    product, field = _product(route)
+    return pbs.sample_extract(pbs._blind_rotate_stepwise(
+        acc, amounts, getattr(dev, field), product), p)
+
+
 @pytest.mark.parametrize("B", [1, 5, 33])
-@pytest.mark.parametrize("route", [False, True], ids=["k3", "k4"])
+@pytest.mark.parametrize("route", ["k3", "k4"])
 def test_graph_replay_equals_the_eager_loop(stepwise, key_material64, B,
                                             route):
     """Two different inputs at one B through one cached graph, each equal
@@ -562,7 +587,8 @@ def test_graph_replay_equals_the_eager_loop(stepwise, key_material64, B,
     srv, dev = key_material64
     cpu = keys.pack_server_keys(srv, "cpu", params=P64)
     n, N = P64.lwe_dimension, P64.polynomial_size
-    product = ne.ntt_ext if route else ep.ext_product
+    product, field = _product(route)
+    key = getattr(dev, field)
     gen = torch.Generator().manual_seed(B)
     graphs = len(pbs._STEP_GRAPHS)
     for turn in range(2):
@@ -572,14 +598,13 @@ def test_graph_replay_equals_the_eager_loop(stepwise, key_material64, B,
                             generator=gen)
         before = (rd.rotate_diff_decompose.launches, product.launches)
         got = pbs._blind_rotate_stepwise(acc.to(stepwise), amt.to(stepwise),
-                                         dev, route)
+                                         key, product)
         assert (rd.rotate_diff_decompose.launches,
                 product.launches) == (before[0] + n, before[1] + n)
-        eager = pbs._blind_rotate_stepwise(acc.to(stepwise), amt.to(stepwise),
-                                           dev, route, graph=False)
-        assert torch.equal(got, eager)
-        assert torch.equal(got.cpu(),
-                           pbs._blind_rotate_stepwise(acc, amt, cpu, route))
+        assert torch.equal(got, _eager(acc.to(stepwise), amt.to(stepwise),
+                                       key, product))
+        assert torch.equal(got.cpu(), pbs._blind_rotate_stepwise(
+            acc, amt, getattr(cpu, field), product))
         assert len(pbs._STEP_GRAPHS) == min(graphs + 1, pbs.STEP_GRAPHS_KEPT)
 
 
@@ -604,13 +629,14 @@ def test_rotate_decompose_digit_boundaries(stepwise, n):
 
 
 @pytest.mark.parametrize("B", [5, 40])
-@pytest.mark.parametrize("route", [{"use_pallas": True}, {"use_ntt2": True}],
-                         ids=["k3", "k4"])
+@pytest.mark.parametrize("route", ["k3", "k4"])
 def test_stepwise_pbs_batch_cuda_equals_cpu(stepwise, key_material64, B,
                                             route):
-    """pbs_batch through each step-wise route on the card equals the same
-    route on CPU and K2's exact mode on the card; n launches of K5 and of
-    the route's product kernel."""
+    """A bootstrap through each step-wise route on the card equals the
+    same route on CPU and K2's exact mode on the card; n launches of K5
+    and of the route's product kernel.  The K3 route is pbs_batch's on a
+    key packed without its NTT-domain key; the K4 route is the step loop
+    called directly."""
     srv, dev = key_material64
     cpu = keys.pack_server_keys(srv, "cpu", params=P64)
     rng = np.random.default_rng(B)
@@ -618,17 +644,21 @@ def test_stepwise_pbs_batch_cuda_equals_cpu(stepwise, key_material64, B,
                        dtype=np.uint64)
     idx = torch.from_numpy(np.arange(B) % 2)
     tables = [[(3 * x + 1) % 16 for x in range(16)], list(range(16))]
-    product = ne.ntt_ext if "use_ntt2" in route else ep.ext_product
+    product = _product(route)[0]
+    card_args = (torus.from_numpy(cts, stepwise), idx.to(stepwise),
+                 keys.pack_luts(tables, P64, stepwise))
+    cpu_args = (torus.from_numpy(cts), idx, keys.pack_luts(tables, P64, "cpu"))
     before = (rd.rotate_diff_decompose.launches, product.launches)
-    got = pbs.pbs_batch(torus.from_numpy(cts, stepwise), idx.to(stepwise),
-                        keys.pack_luts(tables, P64, stepwise), dev, **route)
+    if route == "k3":
+        got = pbs.pbs_batch(*card_args, keys.pack_server_keys(
+            srv, stepwise, params=P64, with_ntt2=False))
+    else:
+        got = _stepwise_pbs(*card_args, dev, route)
     n = P64.lwe_dimension
     assert (rd.rotate_diff_decompose.launches,
             product.launches) == (before[0] + n, before[1] + n)
-    whole = pbs.pbs_batch(torus.from_numpy(cts, stepwise), idx.to(stepwise),
-                          keys.pack_luts(tables, P64, stepwise), dev)
-    want = pbs.pbs_batch(torus.from_numpy(cts), idx,
-                         keys.pack_luts(tables, P64, "cpu"), cpu, **route)
+    whole = pbs.pbs_batch(*card_args, dev)
+    want = _stepwise_pbs(*cpu_args, cpu, route)
     np.testing.assert_array_equal(torus.to_numpy(got), torus.to_numpy(want))
     np.testing.assert_array_equal(torus.to_numpy(whole), torus.to_numpy(want))
 
@@ -659,7 +689,7 @@ def test_contains_without_ntt_key_on_cuda_equals_cpu(stepwise):
 
 
 # ---------------------------------------------------------------------------
-# K4's cluster bodies, the step loop's graph, use_fused, the CLI
+# K4's cluster bodies, the step loop's graph, the CLI
 # ---------------------------------------------------------------------------
 
 STEP_SIZES = [128, 256, 512, 1024, 2048]
@@ -686,7 +716,7 @@ def test_ntt_ext_every_body_matches_plain_and_k3(stepwise, n, B, cluster):
     accumulator, against the one-block body (held to the plain version at
     small sizes) and, from N = 128 on, against K3."""
     acc, amt, bsk = _step_case(n, B, 1, stepwise)
-    khat = keys.pack_bsk_ntt(bsk, stepwise, keys.KEY_PLANES64)[0]
+    khat = keys.pack_bsk_hats(bsk, stepwise, keys.KEY_PLANES64)[0]
     dl = rd.rotate_diff_decompose(acc, amt[0])
     want = (ne.ntt_ext_plain(dl, khat) if n <= 256 or B <= 8
             else ne.ntt_ext(dl, khat, cluster=1))
@@ -712,8 +742,8 @@ def test_step_graph_equals_the_eager_loop_on_both_routes(
     the wrapper picks)."""
     _, dev = key_material64
     n, N = P64.lwe_dimension, P64.polynomial_size
-    use_ntt2 = route == "k4"
-    product = ne.ntt_ext if use_ntt2 else ep.ext_product
+    product, field = _product(route)
+    key = getattr(dev, field)
     gen = torch.Generator().manual_seed(3)
     for turn in range(2):
         acc = torch.randint(-2**63, 2**63 - 1, (5, 2, N), dtype=torch.int64,
@@ -722,32 +752,15 @@ def test_step_graph_equals_the_eager_loop_on_both_routes(
                             generator=gen).to(stepwise)
         before = (rd.rotate_diff_decompose.launches, product.launches,
                   dict(ne.ntt_ext.bodies))
-        got = pbs._blind_rotate_stepwise(acc, amt, dev, use_ntt2)
+        got = pbs._blind_rotate_stepwise(acc, amt, key, product)
         assert (rd.rotate_diff_decompose.launches - before[0],
                 product.launches - before[1]) == (n, n)
         picked = ne.pick_cluster(5, N, stepwise.index or 0)
         assert ne.ntt_ext.bodies == {
-            c: before[2][c] + (n if use_ntt2 and c == picked else 0)
+            c: before[2][c] + (n if route == "k4" and c == picked else 0)
             for c in ne.CLUSTERS}
-        assert torch.equal(got, pbs._blind_rotate_stepwise(
-            acc, amt, dev, use_ntt2, graph=False))
+        assert torch.equal(got, _eager(acc, amt, key, product))
         assert torch.equal(got, br64.blind_rotate64(acc, amt, dev.bsk_ntt64))
-
-
-def test_pbs_batch_takes_use_fused(cuda, key_material64):
-    """A caller written for the JAX signature: use_fused=True is the
-    whole-rotation kernel, which is also the default."""
-    srv, dev = key_material64
-    rng = np.random.default_rng(2)
-    sk = ref.keygen(P64, np.random.default_rng(11))[0]
-    cts = torus.from_numpy(np.stack(
-        [ref.shortint_encrypt(sk, int(m), rng) for m in range(8)]), cuda)
-    bank = keys.pack_luts([[(3 * x + 1) % 16 for x in range(16)]], P64, cuda)
-    idx = torch.zeros(8, dtype=torch.int64, device=cuda)
-    before = br64.blind_rotate64.launches
-    fused = pbs.pbs_batch(cts, idx, bank, dev, use_fused=True, use_pallas=True)
-    assert br64.blind_rotate64.launches == before + 1
-    assert torch.equal(fused, pbs.pbs_batch(cts, idx, bank, dev))
 
 
 def test_cli_on_the_card_passes_a_handful(cuda, capsys):
@@ -766,7 +779,7 @@ def test_cli_on_the_card_passes_a_handful(cuda, capsys):
 
 
 # ---------------------------------------------------------------------------
-# the 32-bit limb route, use_ntt, and a packed key saved and loaded
+# the 32-bit limb route, and a packed key saved and loaded
 # ---------------------------------------------------------------------------
 
 def _random_cts(p, B, seed):
@@ -784,9 +797,9 @@ TABLES = [[(3 * x + 1) % 16 for x in range(16)], list(range(16))]
 @pytest.mark.parametrize("B", [5, 40])
 def test_32bit_limb_route_cuda_equals_cpu(stepwise, key_material, B):
     """A 32-bit key packed with_ntt2=False on the card: pbs_batch through
-    its route (use_pallas: digits in torch ops, one K3 per gadget level,
-    replayed from the step graph) equals the same route on CPU, the eager
-    loop on the card and K1 on the card; 3n launches of K3, none of K5."""
+    its route (digits in torch ops, one K3 per gadget level, replayed from
+    the step graph) equals the same route on CPU, the eager loop on the
+    card and K1 on the card; 3n launches of K3, none of K5."""
     srv, dev = key_material
     limbs = keys.pack_server_keys(srv, stepwise, params=P, with_ntt2=False)
     cpu = keys.pack_server_keys(srv, "cpu", params=P, with_ntt2=False)
@@ -794,54 +807,26 @@ def test_32bit_limb_route_cuda_equals_cpu(stepwise, key_material, B):
     before = (rd.rotate_diff_decompose.launches, ep.ext_product.launches)
     got = pbs.pbs_batch(torus.from_numpy(cts, stepwise), idx.to(stepwise),
                         keys.pack_luts(TABLES, P, stepwise), limbs,
-                        **shortint.pbs_route(limbs, on_cpu=False))
+                        *pbs.served_mode(limbs, stepwise))
     n = P.lwe_dimension
     assert (rd.rotate_diff_decompose.launches,
             ep.ext_product.launches) == (before[0], before[1] + 3 * n)
     whole = pbs.pbs_batch(torus.from_numpy(cts, stepwise), idx.to(stepwise),
                           keys.pack_luts(TABLES, P, stepwise), dev)
     want = pbs.pbs_batch(torus.from_numpy(cts), idx,
-                         keys.pack_luts(TABLES, P, "cpu"), cpu,
-                         use_pallas=True)
+                         keys.pack_luts(TABLES, P, "cpu"), cpu)
     np.testing.assert_array_equal(torus.to_numpy(got), torus.to_numpy(want))
     np.testing.assert_array_equal(torus.to_numpy(whole), torus.to_numpy(want))
     acc = torch.randint(-2**63, 2**63 - 1, (B, 2, P.polynomial_size),
                         dtype=torch.int64) & ~0xFFFFFFFF
     amt = torch.randint(0, 2 * P.polynomial_size, (B, n), dtype=torch.int32)
     graphed = pbs._blind_rotate_stepwise(acc.to(stepwise), amt.to(stepwise),
-                                         limbs, False)
-    eager = pbs._blind_rotate_stepwise(acc.to(stepwise), amt.to(stepwise),
-                                       limbs, False, graph=False)
+                                         limbs.bsk_limbs, ep.ext_product)
+    eager = _eager(acc.to(stepwise), amt.to(stepwise), limbs.bsk_limbs,
+                   ep.ext_product)
     assert torch.equal(graphed, eager)
-    assert torch.equal(graphed.cpu(),
-                       pbs._blind_rotate_stepwise(acc, amt, cpu, False))
-
-
-@pytest.mark.parametrize("family", ["32", "64"])
-def test_use_ntt_cuda_equals_the_whole_rotation(cuda, key_material,
-                                                key_material64, family):
-    """pbs_batch(use_ntt=True) on the card: one launch of the family's
-    whole-rotation kernel, the bits of its exact mode on the card and of
-    use_ntt on CPU."""
-    p, (srv, dev) = ((P, key_material) if family == "32"
-                     else (P64, key_material64))
-    kernel = br.blind_rotate32 if family == "32" else br64.blind_rotate64
-    ntt_keys = keys.pack_server_keys(srv, cuda, params=p, with_ntt2=False,
-                                     with_ntt=True)
-    cpu = keys.pack_server_keys(srv, "cpu", params=p, with_ntt2=False,
-                                with_ntt=True)
-    cts, idx = _random_cts(p, 9, 3)
-    before = kernel.launches
-    got = pbs.pbs_batch(torus.from_numpy(cts, cuda), idx.to(cuda),
-                        keys.pack_luts(TABLES, p, cuda), ntt_keys,
-                        use_ntt=True)
-    assert kernel.launches == before + 1
-    whole = pbs.pbs_batch(torus.from_numpy(cts, cuda), idx.to(cuda),
-                          keys.pack_luts(TABLES, p, cuda), dev)
-    want = pbs.pbs_batch(torus.from_numpy(cts), idx,
-                         keys.pack_luts(TABLES, p, "cpu"), cpu, use_ntt=True)
-    assert torch.equal(got, whole)
-    np.testing.assert_array_equal(torus.to_numpy(got), torus.to_numpy(want))
+    assert torch.equal(graphed.cpu(), pbs._blind_rotate_stepwise(
+        acc, amt, cpu.bsk_limbs, ep.ext_product))
 
 
 @pytest.mark.parametrize("with_ntt2", [True, False], ids=["ntt", "no_ntt"])
@@ -901,9 +886,9 @@ def test_ext_product_column_shard_in_every_body(stepwise, n, B, cols):
     torch.cuda.synchronize()
 
 
-def _pbs_call(fn, key_path, cts, table, **route):
+def _pbs_call(fn, key_path, cts, table, **mode):
     return (fn, (key_path, cts, np.zeros(len(cts), np.int64), [table]),
-            route)
+            mode)
 
 
 def test_sharded_pbs_over_two_gloo_ranks_on_the_card(stepwise, key_material,
@@ -953,7 +938,7 @@ def test_sharded_pbs_over_two_gloo_ranks_on_the_card(stepwise, key_material,
                       key_material64[1], rounded=True, approx=True),
         None, None,
         pbs.pbs_batch(torus.from_numpy(cts64, stepwise), idx, bank64,
-                      key_material64[1], use_pallas=True)]
+                      key_material64[1])]
     plan = ntt_plan.make_neg_plan(40961, 2048)
     for rank in recs:
         for i in (0, 1, 4):

@@ -138,8 +138,10 @@ def test_client_key_defaults_to_param_prod(method):
 def test_get_server_key_takes_the_jax_packages_positional_parameters(
         tmp_path):
     """``get_server_key(False)`` means "no NTT key" in both packages: the
-    positional parameters agree in name, order and default; the port's
-    ``device`` is keyword-only, and ``cache_path`` is the second."""
+    positional parameters agree in name and order; the port's
+    ``with_ntt2`` is a plain bool whose default packs the NTT key (the JAX
+    package's None packs it off CPU only), its ``device`` is keyword-only,
+    and ``cache_path`` is the second."""
     from fhestring_tpu.client import ClientKey as JaxClientKey
     from fhestring_tpu_torch import PARAM_TEST32_ZERO_NOISE
     from fhestring_tpu_torch.client import ClientKey
@@ -149,17 +151,19 @@ def test_get_server_key_takes_the_jax_packages_positional_parameters(
             cls.get_server_key).parameters.values()
             if p.kind is inspect.Parameter.POSITIONAL_OR_KEYWORD]
 
-    assert positional(ClientKey) == positional(JaxClientKey) == [
-        ("self", inspect.Parameter.empty), ("with_ntt2", None),
-        ("cache_path", None)]
+    empty = inspect.Parameter.empty
+    assert positional(ClientKey) == [("self", empty), ("with_ntt2", True),
+                                     ("cache_path", None)]
+    assert positional(JaxClientKey) == [("self", empty), ("with_ntt2", None),
+                                        ("cache_path", None)]
     own = inspect.signature(ClientKey.get_server_key).parameters
     assert own["device"].kind is inspect.Parameter.KEYWORD_ONLY
     ck = ClientKey(PARAM_TEST32_ZERO_NOISE, seed=1, device="cpu")
     path = str(tmp_path / "keys.npz")
-    ck.get_server_key(None, path)
+    ck.get_server_key(True, path)
     assert os.path.exists(path)
     with pytest.raises(TypeError):
-        ck.get_server_key(None, None, "cpu")
+        ck.get_server_key(True, None, "cpu")
     assert ck.get_server_key(True, device="cpu").backend.sc.keys \
         .bsk_ntt32 is not None
 

@@ -8,7 +8,7 @@ its numpy reference ``ntt2.ext_u64_ntt2_numpy``, as
 tests/test_ntt_ext_kernel.py runs them; and with the port's K3 plain
 version (``ext_product_plain``) on the same input.  The JAX kernel takes a
 3-prime NTT-domain key (``ntt2.key_hats``); the port's K4 takes one step of
-the 2-prime key of its 64-bit blind rotation (``keys.pack_bsk_ntt``); both
+the 2-prime key of its 64-bit blind rotation (``keys.pack_bsk_hats``); both
 come from the same numpy u64 key polys.  Digits span [-2^22, 2^22].
 
 Tolerance: zero.  Every route is exact integer arithmetic mod 2^64.
@@ -58,7 +58,7 @@ def inputs():
 
 
 def _port(port_dl, key):
-    khat = keys.pack_bsk_ntt(key[None], "cpu", keys.KEY_PLANES64)[0]
+    khat = keys.pack_bsk_hats(key[None], "cpu", keys.KEY_PLANES64)[0]
     return torus.to_numpy(ne.ntt_ext_plain(torch.from_numpy(port_dl), khat))
 
 
@@ -90,7 +90,7 @@ def test_plain_equals_the_k3_plain_version(inputs):
 
 def test_cpu_wrapper_runs_plain_and_counts_no_launch(inputs):
     _, key, port_dl = inputs
-    khat = keys.pack_bsk_ntt(key[None], "cpu", keys.KEY_PLANES64)[0]
+    khat = keys.pack_bsk_hats(key[None], "cpu", keys.KEY_PLANES64)[0]
     before = ne.ntt_ext.launches
     out = ne.ntt_ext(torch.from_numpy(port_dl), khat)
     assert ne.ntt_ext.launches == before == 0
@@ -102,7 +102,7 @@ def test_cpu_wrapper_runs_plain_and_counts_no_launch(inputs):
 def test_wrapper_rejects_bad_inputs(inputs, bad):
     _, key, port_dl = inputs
     dl = torch.from_numpy(port_dl)
-    khat = keys.pack_bsk_ntt(key[None], "cpu", keys.KEY_PLANES64)[0]
+    khat = keys.pack_bsk_hats(key[None], "cpu", keys.KEY_PLANES64)[0]
     if bad == "dl_dtype":
         dl = dl.to(torch.int16)
     elif bad == "key_dtype":
@@ -124,7 +124,7 @@ def test_every_body_is_the_plain_version_on_the_cpu(inputs, cluster):
     """``cluster=`` picks the kernel's body on the card; on the CPU every
     value runs the plain version, adding into ``out`` where asked."""
     _, key, port_dl = inputs
-    khat = keys.pack_bsk_ntt(key[None], "cpu", keys.KEY_PLANES64)[0]
+    khat = keys.pack_bsk_hats(key[None], "cpu", keys.KEY_PLANES64)[0]
     dl = torch.from_numpy(port_dl)
     want = ne.ntt_ext_plain(dl, khat)
     assert torch.equal(ne.ntt_ext(dl, khat, cluster=cluster), want)
@@ -139,7 +139,7 @@ def test_every_body_is_the_plain_version_on_the_cpu(inputs, cluster):
 @pytest.mark.parametrize("bad", [0, 3, 8, True, "2"])
 def test_wrapper_rejects_other_cluster_values(inputs, bad):
     _, key, port_dl = inputs
-    khat = keys.pack_bsk_ntt(key[None], "cpu", keys.KEY_PLANES64)[0]
+    khat = keys.pack_bsk_hats(key[None], "cpu", keys.KEY_PLANES64)[0]
     with pytest.raises(ValueError):
         ne.ntt_ext(torch.from_numpy(port_dl), khat, cluster=bad)
 

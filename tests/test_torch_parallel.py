@@ -69,9 +69,9 @@ def inputs():
                 x2_hat=x2_hat, digits=digits, khat=khat)
 
 
-def _pbs_call(fn, key_path, cts, table, **route):
+def _pbs_call(fn, key_path, cts, table, **mode):
     return (fn, (key_path, cts, np.zeros(len(cts), np.int64), [table]),
-            route)
+            mode)
 
 
 def _poly_call(fn, *arrays):

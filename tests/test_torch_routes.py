@@ -1,24 +1,26 @@
-"""The two blind-rotation routes that ``pbs_batch`` gained to serve every
-key the JAX package serves, against the JAX package.
+"""The blind-rotation routes of ``pbs_batch`` and the served path's mode,
+against the JAX package.
 
-- ``use_ntt=True``: the CRT-NTT external product against ``bsk_ntt``
-  (``pack_server_keys(with_ntt=True)``), either family, through the
-  family's whole-rotation kernel in exact mode (its plain version on CPU
-  tensors); the JAX package's ``step_ntt`` (XLA).
-- The limb-plane route of a key packed ``with_ntt2=False``
-  (``use_pallas=True``): at 32 bits the digits of the 3 gadget levels in
-  torch ops and one K3 per level against ``bsk_limbs``, where the JAX
-  package runs ``_ext_planes_einsum``; at 64 bits K5 + K3.
+- The JAX package's ``use_ntt`` route (the CRT-NTT external product, its
+  ``step_ntt`` in XLA) against the port's exact mode: the same
+  arithmetic, run by the family's whole-rotation kernel.
+- The limb-plane route of a key packed ``with_ntt2=False``: at 32 bits the
+  digits of the 3 gadget levels in torch ops and one K3 per level against
+  ``bsk_limbs``, where the JAX package runs ``_ext_planes_einsum``; at 64
+  bits K5 + K3.
 
 Each at both CI families, PARAM_TEST32_ZERO_NOISE and
 PARAM_TEST_ZERO_NOISE, against the JAX ``pbs_batch`` on CPU; then the
-keyword precedence use_fused > use_ntt2 > use_ntt > use_pallas, the served
-route choice, and one request through a ``with_ntt2=False`` 32-bit server
+route and mode of every kind of packed key on either device (the kernel
+wrappers spied on, so that the card's cases run on the CPU), the modes a
+route refuses, and one request through a ``with_ntt2=False`` 32-bit server
 against the JAX engine's bits and PBS counts.  Keys and ciphertexts are
 made with numpy from a seed and given to both packages.
 
 Tolerance: zero.  Every route is exact integer arithmetic.
 """
+
+import collections
 
 import numpy as np
 import pytest
@@ -34,13 +36,14 @@ from fhestring_tpu.crypto import keys as jkeys
 from fhestring_tpu.crypto import pbs as jpbs
 from fhestring_tpu.numpy_ref import core as ref
 from fhestring_tpu_torch import (PARAM_TEST32_ZERO_NOISE,
-                                 PARAM_TEST_ZERO_NOISE, metrics, shortint,
-                                 torus)
+                                 PARAM_TEST_ZERO_NOISE, metrics, parallel,
+                                 shortint, torus)
 from fhestring_tpu_torch.ciphertext import FheString, blocks_from_numpy, to_numpy
 from fhestring_tpu_torch.crypto import keys, pbs
 from fhestring_tpu_torch.crypto.kernels import blind_rotate32 as br
 from fhestring_tpu_torch.crypto.kernels import blind_rotate64 as br64
 from fhestring_tpu_torch.crypto.kernels import ext_product as ep
+from fhestring_tpu_torch.crypto.kernels import rotate_decompose as rd
 from fhestring_tpu_torch.server import ServerKey
 
 torch.set_num_threads(1)
@@ -68,48 +71,36 @@ def setup(request):
     return p, sk, srv, msgs, cts, jtorus.to_numpy(jout), jtorus.to_numpy(jntt)
 
 
-def _pbs(cts, dev, **route):
+def _pbs(cts, dev, **mode):
     return torus.to_numpy(pbs.pbs_batch(
         torus.from_numpy(cts), torch.zeros(len(cts), dtype=torch.int64),
-        keys.pack_luts([TABLE], dev.params, "cpu"), dev, **route))
+        keys.pack_luts([TABLE], dev.params, "cpu"), dev, **mode))
 
 
 def test_use_ntt_matches_jax(setup):
-    """pbs_batch(use_ntt=True) against the JAX package's use_ntt route and
-    its default route (both exact, so the same bits)."""
+    """The JAX package's use_ntt route against its default route and the
+    port's exact mode on a key packed with its NTT-domain key (all exact,
+    so the same bits): the port runs the use_ntt arithmetic through the
+    family's whole-rotation kernel."""
     p, sk, srv, msgs, cts, jout, jntt = setup
     np.testing.assert_array_equal(jout, jntt)
-    dev = keys.pack_server_keys(srv, "cpu", params=p, with_ntt2=False,
-                                with_ntt=True)
-    got = _pbs(cts, dev, use_ntt=True)
+    dev = keys.pack_server_keys(srv, "cpu", params=p)
+    assert dev.ntt_key is not None
+    got = _pbs(cts, dev)
     np.testing.assert_array_equal(got, jntt)
     assert [ref.shortint_decrypt(sk, c) for c in got] == [TABLE[m]
                                                           for m in msgs]
 
 
-def test_use_ntt_key_is_the_whole_rotation_key(setup):
-    """with_ntt packs the family's NTT-domain key; packed with with_ntt2 as
-    well, the two fields hold one tensor."""
-    p, _, srv, *_ = setup
-    both = keys.pack_server_keys(srv, "cpu", params=p, with_ntt=True)
-    family = both.bsk_ntt32 if p.torus_bits == 32 else both.bsk_ntt64
-    assert both.bsk_ntt is family
-    alone = keys.pack_server_keys(srv, "cpu", params=p, with_ntt2=False,
-                                  with_ntt=True)
-    assert torch.equal(alone.bsk_ntt, family)
-    assert alone.bsk_ntt32 is None and alone.bsk_ntt64 is None
-
-
 def test_limb_route_without_ntt_key_matches_jax(setup):
-    """A key packed with_ntt2=False served by pbs_route's keywords (the
-    limb-plane route) gives the JAX package's bits."""
+    """A key packed with_ntt2=False is served exact by the limb-plane
+    route, with the JAX package's bits."""
     p, sk, srv, msgs, cts, jout, _ = setup
     dev = keys.pack_server_keys(srv, "cpu", params=p, with_ntt2=False)
     assert dev.bsk_limbs is not None
     assert dev.bsk_ntt32 is None and dev.bsk_ntt64 is None
-    route = shortint.pbs_route(dev, on_cpu=True)
-    assert route == {"use_pallas": True}
-    np.testing.assert_array_equal(_pbs(cts, dev, **route), jout)
+    assert pbs.served_mode(dev, "cpu") == (False, False)
+    np.testing.assert_array_equal(_pbs(cts, dev), jout)
 
 
 def test_32bit_limb_key_in_the_jax_layout():
@@ -141,85 +132,126 @@ def test_64bit_raw_key_from_the_ntt_key():
                        torus.from_numpy(srv.bsk))
 
 
-def _spy_routes(monkeypatch):
-    """Record which route blind_rotate takes, without running it."""
-    taken = []
+KEY_STATES = {"NTT key": ("ntt",), "limbs only": ("limbs",),
+              "both": ("ntt", "limbs"), "neither": ()}
 
-    def record(name):
-        def run(*args, **kwargs):
-            taken.append(name)
-            return args[0]
+
+def _zero_keys(p, packed):
+    """DeviceServerKeys of the set's shapes, zero, holding the fields that
+    ``packed`` names: "ntt" (the family's NTT-domain key), "limbs"."""
+    n, N, kp1 = p.lwe_dimension, p.polynomial_size, p.glwe_dimension + 1
+    R = kp1 * p.pbs_level
+    tensors = {}
+    if "ntt" in packed:
+        tensors[keys.ntt_field(p)] = torch.zeros(
+            (n, 2, R, kp1 * keys.key_planes(p), N), dtype=torch.int16)
+    if "limbs" in packed:
+        tensors["bsk_limbs"] = torch.zeros((n, R, kp1, 8, 2 * N),
+                                           dtype=torch.int8)
+    return keys.DeviceServerKeys(
+        params=p, ksk_limbs=torch.zeros((1, 8), dtype=torch.int8), **tensors)
+
+
+def _spy_kernels(monkeypatch):
+    """Count the launches of each kernel wrapper blind_rotate reaches, K1
+    and K2 by mode, without running any."""
+    taken = collections.Counter()
+
+    def whole(name):
+        def run(acc, amounts, khat, rounded=False, approx=False):
+            taken[name, rounded, approx] += 1
+            return acc
         return run
 
-    monkeypatch.setattr(br, "blind_rotate32", record("fused"))
-    monkeypatch.setattr(br64, "blind_rotate64", record("fused"))
-    monkeypatch.setattr(pbs, "_blind_rotate_ntt", record("ntt"))
+    def step(name):
+        def run(*args, out=None, **kwargs):
+            taken[name] += 1
+            return out
+        return run
 
-    def stepwise(acc, amounts, keys_, use_ntt2, graph=True):
-        taken.append("ntt2" if use_ntt2 else "pallas")
-        return acc
-
-    monkeypatch.setattr(pbs, "_blind_rotate_stepwise", stepwise)
+    monkeypatch.setattr(br, "blind_rotate32", whole("K1"))
+    monkeypatch.setattr(br64, "blind_rotate64", whole("K2"))
+    monkeypatch.setattr(rd, "rotate_diff_decompose", step("K5"))
+    monkeypatch.setattr(ep, "ext_product", step("K3"))
     return taken
 
 
-@pytest.mark.parametrize("flags,want", [
-    ({}, "fused"),
-    ({"use_fused": True, "use_ntt2": True, "use_ntt": True,
-      "use_pallas": True}, "fused"),
-    ({"use_ntt2": True, "use_ntt": True, "use_pallas": True}, "ntt2"),
-    ({"use_ntt": True, "use_pallas": True}, "ntt"),
-    ({"use_pallas": True}, "pallas"),
-])
-def test_keyword_precedence(monkeypatch, flags, want):
-    """use_fused > use_ntt2 > use_ntt > use_pallas, as the JAX package's
-    blind_rotate reads them (fhestring_tpu/crypto/pbs.py)."""
-    taken = _spy_routes(monkeypatch)
-    p = PARAM_TEST_ZERO_NOISE
-    dev = keys.DeviceServerKeys(params=p, ksk_limbs=torch.zeros(1))
+@pytest.mark.parametrize("device", ["cpu", "cuda"], ids=["CPU", "card"])
+@pytest.mark.parametrize("state", list(KEY_STATES))
+@pytest.mark.parametrize("p", FAMILIES, ids=lambda p: p.name)
+def test_served_route_and_mode(monkeypatch, p, state, device):
+    """The served path's mode (``served_mode``) and the route
+    ``blind_rotate`` takes in that mode, for every kind of packed key, as
+    the JAX package's ``_pbs_padded`` chooses them: the whole-rotation
+    kernel with the NTT-domain key, K2 rounded + approx on the card and
+    exact on CPU, K1 exact; the limb-plane route without it, exact (K5 +
+    K3 a step at 64 bits, one K3 per gadget level at 32); a key with
+    neither is refused."""
+    taken = _spy_kernels(monkeypatch)
+    dev = _zero_keys(p, KEY_STATES[state])
+    mode = pbs.served_mode(dev, device)
     acc = torch.zeros((1, 2, p.polynomial_size), dtype=torch.int64)
     lwe = torch.zeros((1, p.lwe_dimension + 1), dtype=torch.int64)
-    pbs.blind_rotate(acc, lwe, dev, **flags)
-    assert taken == [want]
+    fast = (p.torus_bits == 64 and device == "cuda"
+            and "ntt" in KEY_STATES[state])
+    assert mode == (fast, fast)
+    if state == "neither":
+        with pytest.raises(ValueError, match="neither"):
+            pbs.blind_rotate(acc, lwe, dev, *mode)
+        assert not taken
+        return
+    pbs.blind_rotate(acc, lwe, dev, *mode)
+    n = p.lwe_dimension
+    if state == "limbs only" and p.torus_bits == 32:
+        want = {"K3": n * p.pbs_level}
+    elif state == "limbs only":
+        want = {"K5": n, "K3": n}
+    else:
+        want = {("K1" if p.torus_bits == 32 else "K2", *mode): 1}
+    assert dict(taken) == want
 
 
-@pytest.mark.parametrize("bad", ["no bsk_ntt", "ntt2 at 32 bits",
-                                 "rounded"])
-def test_new_route_refusals(bad):
-    p = PARAM_TEST32_ZERO_NOISE if bad == "ntt2 at 32 bits" \
-        else PARAM_TEST_ZERO_NOISE
+@pytest.mark.parametrize("case", ["K1 rounded", "K1 approx",
+                                  "limbs rounded", "limbs approx"])
+def test_new_route_refusals(case):
+    """At 32 bits K1 and the limb-plane route run the exact mode only."""
+    p = PARAM_TEST32_ZERO_NOISE
     _, srv = ref.keygen(p, np.random.default_rng(0))
-    dev = keys.pack_server_keys(srv, "cpu", params=p)
-    flags = {"use_ntt2": True} if bad == "ntt2 at 32 bits" else {
-        "use_ntt": True}
+    dev = keys.pack_server_keys(srv, "cpu", params=p,
+                                with_ntt2=case.startswith("K1"))
     acc = torch.zeros((1, 2, p.polynomial_size), dtype=torch.int64)
     lwe = torch.zeros((1, p.lwe_dimension + 1), dtype=torch.int64)
-    with pytest.raises(ValueError):
-        pbs.blind_rotate(acc, lwe, dev, rounded=bad == "rounded", **flags)
+    with pytest.raises(ValueError, match="exact mode only"):
+        pbs.blind_rotate(acc, lwe, dev, rounded=case.endswith("rounded"),
+                         approx=case.endswith("approx"))
 
 
-@pytest.mark.parametrize("case,want", [
-    ("NTT key", {}),
-    ("limbs only", {"use_pallas": True}),
-    ("both", {}),
-])
-def test_pbs_route_at_32_bits(case, want):
-    """The served route of a 32-bit key: K1 with its NTT key, the limb
-    route without it (where the JAX package runs its einsum)."""
-    t = torch.zeros(1)
-    tensors = {"NTT key": {"bsk_ntt32": t}, "limbs only": {"bsk_limbs": t},
-               "both": {"bsk_ntt32": t, "bsk_limbs": t}}[case]
-    dev = keys.DeviceServerKeys(params=PARAM_TEST32_ZERO_NOISE,
-                                ksk_limbs=t, **tensors)
-    for on_cpu in (True, False):
-        assert shortint.pbs_route(dev, on_cpu=on_cpu) == want
+@pytest.mark.parametrize("sharded", [False, True], ids=["one", "sharded"])
+def test_pbs_padded_passes_the_served_mode_by_name(monkeypatch, sharded):
+    """The shortint layer calls ``pbs_batch(flat, idx, bank, keys)`` (or
+    ``parallel.pbs_batch_sharded`` with the group) with ``served_mode``'s
+    mode as ``rounded`` and ``approx`` and no other keyword: the call
+    shape that code wrapping ``shortint.pbs_batch`` relies on."""
+    calls = []
 
+    def spy(flat, idx, bank, keys_, *group, **mode):
+        calls.append((keys_, group, mode))
+        return flat
 
-def test_pbs_route_refuses_a_key_with_neither():
-    dev = keys.DeviceServerKeys(params=PARAM_TEST32_ZERO_NOISE,
-                                ksk_limbs=torch.zeros(1))
-    with pytest.raises(ValueError, match="neither"):
-        shortint.pbs_route(dev, on_cpu=True)
+    monkeypatch.setattr(shortint, "pbs_batch", spy)
+    monkeypatch.setattr(parallel, "pbs_batch_sharded", spy)
+    monkeypatch.setattr(shortint, "served_mode", lambda k, d: (True, False))
+    p = PARAM_TEST_ZERO_NOISE
+    dev = _zero_keys(p, ("ntt",))
+    sc = shortint.ShortintContext(dev)
+    sc.group = "group" if sharded else None
+    flat = torch.zeros((3, p.big_lwe_dimension + 1), dtype=torch.int64)
+    out = sc._pbs_padded(flat, torch.zeros(3, dtype=torch.int64),
+                         torch.zeros((1, 2 * p.polynomial_size)))
+    assert out.shape == flat.shape
+    assert len(calls) == 1 and calls[0][0] is dev
+    assert calls[0][1:] == (("group",) if sharded else (),
+                            {"rounded": True, "approx": False})
 
 
 @pytest.mark.parametrize("method", ["contains", "to_upper"])

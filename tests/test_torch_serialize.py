@@ -17,29 +17,34 @@ Tolerance: zero.  Files carry integers; every route is exact.
 """
 
 import dataclasses
+import json
 
 import numpy as np
 import pytest
 import torch
+
+import jax.numpy as jnp
 
 from fhestring_tpu import params as jparams
 from fhestring_tpu import serialize as jser
 from fhestring_tpu import torus as jtorus
 from fhestring_tpu.client import ClientKey as JaxClientKey
 from fhestring_tpu.crypto import keys as jkeys
+from fhestring_tpu.crypto import pbs as jpbs
 from fhestring_tpu_torch import (PARAM_TEST32_ZERO_NOISE,
-                                 PARAM_TEST_ZERO_NOISE, serialize)
+                                 PARAM_TEST_ZERO_NOISE, serialize, torus)
 from fhestring_tpu_torch.ciphertext import FheString, blocks_from_numpy, to_numpy
 from fhestring_tpu_torch.client import ClientKey
-from fhestring_tpu_torch.crypto import keys
+from fhestring_tpu_torch.crypto import keys, pbs
+from fhestring_tpu_torch.numpy_ref import core as ref
 
 torch.set_num_threads(1)
 
 FAMILIES = [PARAM_TEST_ZERO_NOISE, PARAM_TEST32_ZERO_NOISE]
+TABLE = [(5 * x + 2) % 16 for x in range(16)]
 JAX_PARAMS = {PARAM_TEST32_ZERO_NOISE.name: jparams.PARAM_TEST32_ZERO_NOISE,
               PARAM_TEST_ZERO_NOISE.name: jparams.PARAM_TEST_ZERO_NOISE}
-DEVICE_FIELDS = ("bsk_limbs", "ksk_limbs", "bsk_ntt32", "bsk_ntt64",
-                 "bsk_ntt")
+DEVICE_FIELDS = ("bsk_limbs", "ksk_limbs", "bsk_ntt32", "bsk_ntt64")
 
 
 # ---------------------------------------------------------------------------
@@ -221,33 +226,49 @@ def test_packed_server_key_across_packages(pair, tmp_path, direction,
     assert dataclasses_equal(loaded.params, ck.params)
 
 
-def test_packed_key_with_use_ntt_key_round_trips(tmp_path):
-    """A key packed with the use_ntt key (one tensor with the family key)
-    is listed, not stored, and comes back as one tensor; the JAX package's
-    ``bsk_ntt`` name asks the port to rebuild it."""
+@pytest.mark.parametrize("writer", ["port_listing_bsk_ntt", "jax_with_ntt"])
+def test_packed_key_with_use_ntt_key_round_trips(tmp_path, writer):
+    """Files that hold the key of the JAX package's use_ntt route, which
+    the port runs no more: a file of the port that lists the fields
+    ``["bsk_ntt64", "bsk_ntt"]`` loads with ``bsk_ntt64`` (the name
+    ``bsk_ntt`` asks for nothing) and serves the saved key's bits; a JAX
+    file packed ``with_ntt=True`` loads as a limb-only key and gives the
+    JAX package's bits."""
     p = PARAM_TEST_ZERO_NOISE
     ck = ClientKey(p, seed=8, device="cpu")
-    from fhestring_tpu_torch.server import ServerKey
-
-    srv = ServerKey(keys.pack_server_keys(ck._server_raw, "cpu",
-                                          with_ntt=True), p)
     path = str(tmp_path / "ntt.npz")
-    serialize.save_packed_server_key(path, srv)
-    data = np.load(path)
-    assert str(data["torch_hats_fields"]) == '["bsk_ntt64", "bsk_ntt"]'
-    dk = serialize.load_packed_server_key(path, device="cpu").backend.sc.keys
-    assert dk.bsk_ntt is dk.bsk_ntt64
-    _same_device_keys(dk, srv.backend.sc.keys)
+    rng = np.random.default_rng(8)
+    cts = np.stack([ref.shortint_encrypt(ck.secret, m, rng)
+                    for m in range(8)])
+    idx = torch.zeros(len(cts), dtype=torch.int64)
+    bank = keys.pack_luts([TABLE], p, "cpu")
+    if writer == "port_listing_bsk_ntt":
+        srv = ck.get_server_key()
+        serialize.save_packed_server_key(path, srv)
+        arrays = dict(np.load(path))
+        arrays["torch_hats_fields"] = json.dumps(["bsk_ntt64", "bsk_ntt"])
+        with open(path, "wb") as f:
+            np.savez(f, **arrays)
+        want_keys = srv.backend.sc.keys
+        want = pbs.pbs_batch(torus.from_numpy(cts), idx, bank, want_keys)
+    else:
+        jck = JaxClientKey(jparams.PARAM_TEST_ZERO_NOISE, seed=8)
+        from fhestring_tpu.server import ServerKey as JaxServerKey
 
-    jck = JaxClientKey(jparams.PARAM_TEST_ZERO_NOISE, seed=8)
-    from fhestring_tpu.server import ServerKey as JaxServerKey
-
-    jsrv = JaxServerKey(jkeys.pack_server_keys(jck._server_raw,
-                                               with_ntt=True), jck.params)
-    jser.save_packed_server_key(path, jsrv)
+        jdev = jkeys.pack_server_keys(jck._server_raw, with_ntt=True)
+        jser.save_packed_server_key(path, JaxServerKey(jdev, jck.params))
+        want_keys = keys.pack_server_keys(ck._server_raw, "cpu",
+                                          with_ntt2=False)
+        want = torus.from_numpy(jtorus.to_numpy(jpbs.pbs_batch(
+            jtorus.from_numpy(cts), jnp.zeros(len(cts), jnp.int32),
+            jkeys.pack_luts([TABLE], jck.params), jdev)))
     dk = serialize.load_packed_server_key(path, device="cpu").backend.sc.keys
-    assert dk.bsk_ntt64 is None
-    assert torch.equal(dk.bsk_ntt, srv.backend.sc.keys.bsk_ntt)
+    _same_device_keys(dk, want_keys)
+    assert (dk.bsk_ntt64 is None) == (writer == "jax_with_ntt")
+    got = pbs.pbs_batch(torus.from_numpy(cts), idx, bank, dk)
+    assert torch.equal(got, want)
+    assert [ref.shortint_decrypt(ck.secret, c) for c in torus.to_numpy(
+        got)] == [TABLE[m] for m in range(8)]
 
 
 @pytest.mark.parametrize("p", FAMILIES, ids=lambda p: p.name)
@@ -374,7 +395,7 @@ def test_cache_without_ntt_key_is_repacked(tmp_path, monkeypatch):
     ck.get_server_key(False, path)
     assert "torch_hats_fields" not in np.load(path).files
     assert ck.get_server_key(False, path).backend.sc.keys.bsk_ntt32 is None
-    srv = ck.get_server_key(None, path)
+    srv = ck.get_server_key(True, path)
     assert srv.backend.sc.keys.bsk_ntt32 is not None
     assert str(np.load(path)["torch_hats_fields"]) == '["bsk_ntt32"]'
     _refuse_packing(monkeypatch)

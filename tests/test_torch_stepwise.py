@@ -1,21 +1,23 @@
-"""The step-wise 64-bit blind rotation (K5 + K3, K5 + K4) and the route
-choice of the served path, against the JAX package.
+"""The step-wise 64-bit blind rotation (K5 + K3, K5 + K4) against the JAX
+package.
 
-At the 64-bit CI sets PARAM_TEST_ZERO_NOISE and PARAM_TEST_NOISY:
-``pbs_batch(use_pallas=True)`` (the K3 route) and ``pbs_batch(use_ntt2=
-True)`` (the K4 route) against the JAX ``pbs_batch`` on CPU and against
-the port's whole-rotation kernel in the exact mode; the K3 route also
-against the JAX ``pbs_batch(use_pallas=True)``, whose Pallas kernel runs
-interpreted.  A ServerKey packed with ``with_ntt2=False`` serves contains
-and find through the K3 route with the JAX engine's outputs and PBS
-counts.  The route choice (``shortint.pbs_route``) is checked for every
-case of the JAX package's ``_pbs_padded``.  Keys and ciphertexts are made
-with numpy from a seed and given to both packages.
+At the 64-bit CI sets PARAM_TEST_ZERO_NOISE and PARAM_TEST_NOISY: a
+bootstrap whose blind rotation is the step loop with K3 (against
+``bsk_limbs``, the route of a key packed without its NTT-domain key) or
+with K4 (against ``bsk_ntt64``) against the JAX ``pbs_batch`` on CPU and
+against the port's whole-rotation kernel in the exact mode; the K3 route
+also against the JAX ``pbs_batch(use_pallas=True)``, whose Pallas kernel
+runs interpreted.  A ServerKey packed with ``with_ntt2=False`` serves
+contains and find through the K3 route with the JAX engine's outputs and
+PBS counts.  Then the step loop's CUDA graph machinery, on the CPU.  Keys
+and ciphertexts are made with numpy from a seed and given to both
+packages.
 
 Tolerance: zero.  Every route is exact integer arithmetic.
 """
 
 import contextlib
+import dataclasses
 
 import numpy as np
 import pytest
@@ -31,13 +33,13 @@ from fhestring_tpu.crypto import keys as jkeys
 from fhestring_tpu.crypto import pbs as jpbs
 from fhestring_tpu.numpy_ref import core as ref
 from fhestring_tpu_torch import (PARAM_TEST32_ZERO_NOISE, PARAM_TEST_NOISY,
-                                 PARAM_TEST_ZERO_NOISE, metrics, shortint,
-                                 torus)
+                                 PARAM_TEST_ZERO_NOISE, metrics, torus)
 from fhestring_tpu_torch.ciphertext import FheString, blocks_from_numpy, to_numpy
 from fhestring_tpu_torch.client import ClientKey
 from fhestring_tpu_torch.crypto import keys, pbs
 from fhestring_tpu_torch.crypto.kernels import blind_rotate64 as br64
 from fhestring_tpu_torch.crypto.kernels import ext_product as ep
+from fhestring_tpu_torch.crypto.kernels import ntt_ext as ne
 from fhestring_tpu_torch.crypto.kernels import rotate_decompose as rd
 from fhestring_tpu_torch.server import ServerKey
 
@@ -46,7 +48,14 @@ from fhestring_tpu_torch.server import ServerKey
 torch.set_num_threads(1)
 
 TABLE = [(5 * x + 2) % 16 for x in range(16)]
-ROUTES = {"k3": {"use_pallas": True}, "k4": {"use_ntt2": True}}
+ROUTES = ["k3", "k4"]
+
+
+def _product(route):
+    """The step loop's product kernel and its key field: K3 against
+    bsk_limbs, K4 against bsk_ntt64 (looked up now: tests spy on them)."""
+    return ((ep.ext_product, "bsk_limbs") if route == "k3"
+            else (ne.ntt_ext, "bsk_ntt64"))
 S, PAT = "hello world", "ello"
 
 
@@ -67,17 +76,32 @@ def setup(request):
     return p, sk, srv, dev, msgs, cts, jtorus.to_numpy(jout)
 
 
-def _pbs(cts, dev, **route):
+def _pbs(cts, dev):
     p = dev.params
     return torus.to_numpy(pbs.pbs_batch(
         torus.from_numpy(cts), torch.zeros(len(cts), dtype=torch.int64),
-        keys.pack_luts([TABLE], p, "cpu"), dev, **route))
+        keys.pack_luts([TABLE], p, "cpu"), dev))
 
 
-@pytest.mark.parametrize("route", list(ROUTES))
+def _stepwise_pbs(cts, dev, route):
+    """``pbs_batch`` with the step loop of that route as its blind rotation
+    (the body is folded into the accumulator, so the loop takes the mask
+    amounts alone)."""
+    p = dev.params
+    ct = torus.from_numpy(cts)
+    lwe_2n = pbs.modswitch(pbs.keyswitch(ct, dev), p)
+    acc = pbs.initial_acc(lwe_2n, torch.zeros(len(cts), dtype=torch.int64),
+                          keys.pack_luts([TABLE], p, "cpu"), p)
+    amounts = lwe_2n[:, :p.lwe_dimension].to(torch.int32)
+    product, field = _product(route)
+    return torus.to_numpy(pbs.sample_extract(pbs._blind_rotate_stepwise(
+        acc, amounts, getattr(dev, field), product), p))
+
+
+@pytest.mark.parametrize("route", ROUTES)
 def test_stepwise_pbs_batch_matches_jax_and_the_whole_rotation(setup, route):
     p, sk, _, dev, msgs, cts, jax_out = setup
-    got = _pbs(cts, dev, **ROUTES[route])
+    got = _stepwise_pbs(cts, dev, route)
     np.testing.assert_array_equal(got, jax_out)
     np.testing.assert_array_equal(got, _pbs(cts, dev))   # K2, exact mode
     for i, m in enumerate(msgs):
@@ -95,8 +119,7 @@ def test_k3_route_matches_jax_use_pallas_route():
                           jkeys.pack_luts([TABLE], p), jkeys.pack_server_keys(srv),
                           use_pallas=True)
     dev = keys.pack_server_keys(srv, "cpu", params=p, with_ntt2=False)
-    np.testing.assert_array_equal(_pbs(cts, dev, use_pallas=True),
-                                  jtorus.to_numpy(jout))
+    np.testing.assert_array_equal(_pbs(cts, dev), jtorus.to_numpy(jout))
 
 
 @pytest.fixture(scope="module")
@@ -150,74 +173,43 @@ def test_served_without_ntt_key_matches_jax_engine(served, monkeypatch,
                                       else S.find(PAT))
 
 
-def _keys(p, **tensors):
-    return keys.DeviceServerKeys(params=p, ksk_limbs=torch.zeros(1),
-                                 **tensors)
-
-
-@pytest.mark.parametrize("case,want", [
-    ("32-bit", {}),
-    ("64-bit, NTT key, card", {"rounded": True, "approx": True}),
-    ("64-bit, no NTT key, card", {"use_pallas": True}),
-    ("64-bit, NTT key, CPU", {"rounded": False, "approx": False}),
-    ("64-bit, no NTT key, CPU", {"use_pallas": True}),
-])
-def test_route_choice_mirrors_the_jax_package(case, want):
-    """fhestring_tpu/shortint.py _pbs_padded: K1 for a 32-bit set; K2
-    rounded + approx on an accelerator with the NTT key; the K3 route
-    without it; exact on CPU."""
-    key = torch.zeros(1)
-    if case == "32-bit":
-        dev = _keys(PARAM_TEST32_ZERO_NOISE, bsk_ntt32=key)
-    elif "no NTT key" in case:
-        dev = _keys(PARAM_TEST_ZERO_NOISE, bsk_limbs=key)
-    else:
-        dev = _keys(PARAM_TEST_ZERO_NOISE, bsk_ntt64=key, bsk_limbs=key)
-    assert shortint.pbs_route(dev, on_cpu="CPU" in case) == want
-
-
-def test_32bit_set_without_ntt_key_is_refused():
-    """A 32-bit key without its NTT-domain key is served by the limb route
-    (tests/test_torch_routes.py); one with neither key is refused."""
-    dev = _keys(PARAM_TEST32_ZERO_NOISE)
-    with pytest.raises(ValueError, match="neither"):
-        shortint.pbs_route(dev, on_cpu=False)
-
-
-@pytest.mark.parametrize("bad", ["rounded", "32-bit", "no limb key",
-                                 "no NTT key"])
+@pytest.mark.parametrize("bad", ["rounded", "approx", "other gadget"])
 def test_stepwise_route_refusals(bad):
-    p = PARAM_TEST32_ZERO_NOISE if bad == "32-bit" else PARAM_TEST_ZERO_NOISE
+    """The 64-bit limb-plane route runs the exact mode only, and a set
+    whose gadget is not the kernels' is refused."""
+    p = PARAM_TEST_ZERO_NOISE
     _, srv = ref.keygen(p, np.random.default_rng(0))
-    dev = keys.pack_server_keys(srv, "cpu", params=p,
-                                with_ntt2=bad != "no NTT key")
-    route = {"use_ntt2": True} if bad == "no NTT key" else {"use_pallas": True}
-    if bad == "no limb key":
-        dev.bsk_limbs = None
+    dev = keys.pack_server_keys(srv, "cpu", params=p, with_ntt2=False)
+    if bad == "other gadget":
+        dev.params = dataclasses.replace(p, pbs_base_log=22)
     acc = torch.zeros((1, 2, p.polynomial_size), dtype=torch.int64)
     lwe = torch.zeros((1, p.lwe_dimension + 1), dtype=torch.int64)
-    with pytest.raises(ValueError):
-        pbs.blind_rotate(acc, lwe, dev, rounded=bad == "rounded", **route)
+    refusal = {"other gadget": "takes gadget"}.get(bad, "exact mode only")
+    with pytest.raises(ValueError, match=refusal):
+        pbs.blind_rotate(acc, lwe, dev, rounded=bad == "rounded",
+                         approx=bad == "approx")
 
 
+@pytest.mark.parametrize("asked", [{}, {"with_ntt2": True},
+                                   {"with_ntt2": False}],
+                         ids=["default", "True", "False"])
 @pytest.mark.parametrize("params", [PARAM_TEST_ZERO_NOISE,
                                     PARAM_TEST32_ZERO_NOISE],
                          ids=lambda p: p.name)
-def test_get_server_key_packs_the_ntt_key_unless_told_not_to(params):
+def test_get_server_key_packs_the_ntt_key_unless_told_not_to(params, asked):
     ck = ClientKey(params, seed=3, device="cpu")
-    ntt_name = "bsk_ntt64" if params.torus_bits == 64 else "bsk_ntt32"
-    for with_ntt2, packed in ((None, True), (True, True), (False, False)):
-        dev = ck.get_server_key(with_ntt2=with_ntt2).backend.sc.keys
-        assert (getattr(dev, ntt_name) is not None) == packed
-        assert (dev.bsk_limbs is not None) == (params.torus_bits == 64
-                                               or not packed)
+    packed = asked.get("with_ntt2", True)
+    dev = ck.get_server_key(**asked).backend.sc.keys
+    assert (dev.ntt_key is not None) == packed
+    assert (dev.bsk_limbs is not None) == (params.torus_bits == 64
+                                           or not packed)
 
 
 # ---------------------------------------------------------------------------
 # the step loop: eager on the CPU, a replayed CUDA graph on the card
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("route", list(ROUTES))
+@pytest.mark.parametrize("route", ROUTES)
 def test_cpu_route_never_builds_a_graph(setup, monkeypatch, route):
     """On CPU tensors the steps run one by one: no capture, no replay, and
     still the JAX package's bits."""
@@ -228,11 +220,11 @@ def test_cpu_route_never_builds_a_graph(setup, monkeypatch, route):
 
     for name in ("_step_graph", "_capture_steps", "_replay_steps"):
         monkeypatch.setattr(pbs, name, refuse)
-    np.testing.assert_array_equal(_pbs(cts, dev, **ROUTES[route]), jax_out)
+    np.testing.assert_array_equal(_stepwise_pbs(cts, dev, route), jax_out)
     assert not pbs._STEP_GRAPHS
 
 
-@pytest.mark.parametrize("route", list(ROUTES))
+@pytest.mark.parametrize("route", ROUTES)
 def test_stepwise_route_leaves_its_input_accumulator_alone(route):
     """The loop updates an accumulator in place; the caller's tensor is not
     that accumulator."""
@@ -245,7 +237,9 @@ def test_stepwise_route_leaves_its_input_accumulator_alone(route):
     amounts = torch.from_numpy(rng.integers(
         0, 2 * p.polynomial_size, size=(3, p.lwe_dimension)).astype(np.int32))
     before = acc.clone()
-    out = pbs._blind_rotate_stepwise(acc, amounts, dev, route == "k4")
+    product, field = _product(route)
+    out = pbs._blind_rotate_stepwise(acc, amounts, getattr(dev, field),
+                                     product)
     assert torch.equal(acc, before) and not torch.equal(out, before)
     want = br64.blind_rotate64(acc, amounts, dev.bsk_ntt64)
     assert torch.equal(out, want)
@@ -264,8 +258,6 @@ def _spy_on_the_wrappers(monkeypatch):
     Have the step loop's wrappers count as they do on the card, and a
     capture run its body once on the CPU: the graph then holds what a
     capture on the card holds."""
-    from fhestring_tpu_torch.crypto.kernels import ntt_ext as ne
-
     def counting(wrapper, body):
         def spy(*args, **kwargs):
             out = wrapper(*args, **kwargs)
@@ -295,7 +287,7 @@ def _spy_on_the_wrappers(monkeypatch):
     return spies
 
 
-@pytest.mark.parametrize("route", list(ROUTES))
+@pytest.mark.parametrize("route", ROUTES)
 def test_replay_counts_n_launches_per_kernel(monkeypatch, route):
     """A replay runs no wrapper, so ``_replay_steps`` adds the graph's n
     kernel nodes of K5 and of the route's product kernel (K4's also under
@@ -303,51 +295,52 @@ def test_replay_counts_n_launches_per_kernel(monkeypatch, route):
     product kernel's.  The capture itself counts nothing."""
     n, batch, size = 7, 3, 128
     spies = _spy_on_the_wrappers(monkeypatch)
-    use_ntt2 = route == "k4"
+    k4 = route == "k4"
     rng = np.random.default_rng(9)
     bsk = rng.integers(0, 1 << 64, size=(n, 2, 2, size), dtype=np.uint64)
-    key = (keys.pack_bsk_ntt(bsk, "cpu", keys.KEY_PLANES64) if use_ntt2
+    key = (keys.pack_bsk_hats(bsk, "cpu", keys.KEY_PLANES64) if k4
            else keys.pack_bsk_limbs(bsk, "cpu"))
-    entry = pbs._capture_steps((batch, 2, size), n, key, use_ntt2)
+    entry = pbs._capture_steps((batch, 2, size), n, key, _product(route)[0])
     assert [spy.launches for spy in spies.values()] == [0, 0, 0]
     assert spies["k4"].bodies == {1: 0, 2: 0, 4: 0}
     assert entry.graph.replays == 0
-    assert entry.k4_body == (1 if use_ntt2 else None)
+    assert entry.k4_body == (1 if k4 else None)
     for replays in (1, 2):
-        pbs._replay_steps(entry, use_ntt2)
+        pbs._replay_steps(entry)
         assert entry.graph.replays == replays
         got = {name: spy.launches for name, spy in spies.items()}
         assert got == {"k5": replays * n,
-                       "k4": replays * n if use_ntt2 else 0,
-                       "k3": 0 if use_ntt2 else replays * n}
-    assert spies["k4"].bodies == {1: 2 * n if use_ntt2 else 0, 2: 0, 4: 0}
+                       "k4": replays * n if k4 else 0,
+                       "k3": 0 if k4 else replays * n}
+    assert spies["k4"].bodies == {1: 2 * n if k4 else 0, 2: 0, 4: 0}
 
 
 def test_step_graphs_are_cached_by_shape_route_and_key(monkeypatch):
-    """One capture per (route, accumulator shape, steps, key tensor); the
-    least recently used graph goes once more than STEP_GRAPHS_KEPT are
-    held."""
+    """One capture per (product kernel, accumulator shape, steps, key
+    tensor); the least recently used graph goes once more than
+    STEP_GRAPHS_KEPT are held."""
     captured = []
 
-    def fake_capture(shape, n, key, use_ntt2):
-        captured.append((tuple(shape), n, use_ntt2))
-        return pbs._StepGraph(_FakeGraph(), key, torch.zeros(1),
+    def fake_capture(shape, n, key, product):
+        captured.append((tuple(shape), n, product))
+        return pbs._StepGraph(_FakeGraph(), product, key, torch.zeros(1),
                               torch.zeros(1), torch.zeros(1), None)
 
     monkeypatch.setattr(pbs, "_capture_steps", fake_capture)
     monkeypatch.setattr(pbs, "_STEP_GRAPHS", type(pbs._STEP_GRAPHS)())
     monkeypatch.setattr(pbs, "STEP_GRAPHS_KEPT", 3)
     key, other = torch.zeros(4), torch.zeros(4)
-    first = pbs._step_graph((5, 2, 64), 7, key, False)
-    assert pbs._step_graph((5, 2, 64), 7, key, False) is first
-    assert pbs._step_graph((5, 2, 64), 7, key, True) is not first
-    assert pbs._step_graph((15, 2, 64), 7, key, False) is not first
+    k3, k4 = ep.ext_product, ne.ntt_ext
+    first = pbs._step_graph((5, 2, 64), 7, key, k3)
+    assert pbs._step_graph((5, 2, 64), 7, key, k3) is first
+    assert pbs._step_graph((5, 2, 64), 7, key, k4) is not first
+    assert pbs._step_graph((15, 2, 64), 7, key, k3) is not first
     assert len(captured) == 3
-    assert pbs._step_graph((5, 2, 64), 7, key, False) is first   # now newest
-    pbs._step_graph((5, 2, 64), 7, other, False)                 # a 4th
+    assert pbs._step_graph((5, 2, 64), 7, key, k3) is first   # now newest
+    pbs._step_graph((5, 2, 64), 7, other, k3)                 # a 4th
     assert len(captured) == 4 and len(pbs._STEP_GRAPHS) == 3
-    assert pbs._step_graph((5, 2, 64), 7, key, False) is first   # was kept
-    pbs._step_graph((5, 2, 64), 7, key, True)                    # was dropped
+    assert pbs._step_graph((5, 2, 64), 7, key, k3) is first   # was kept
+    pbs._step_graph((5, 2, 64), 7, key, k4)                   # was dropped
     assert len(captured) == 5
 
 
@@ -356,8 +349,6 @@ def test_out_forms_equal_the_returning_forms(kernel):
     """``out=`` of K5 and K4 (the loop's buffers): the same bits, written
     into the given tensor; a wrong buffer is refused.  (K3's ``out=`` and
     ``accumulate=`` are held in test_torch_ext_product.py.)"""
-    from fhestring_tpu_torch.crypto.kernels import ntt_ext as ne
-
     n, batch = 128, 3
     rng = np.random.default_rng(8)
     acc = torus.from_numpy(rng.integers(0, 1 << 64, size=(batch, 2, n),
@@ -374,7 +365,7 @@ def test_out_forms_equal_the_returning_forms(kernel):
             rd.rotate_diff_decompose(acc, amounts, out=bad)
     else:
         bsk = rng.integers(0, 1 << 64, size=(1, 2, 2, n), dtype=np.uint64)
-        khat = keys.pack_bsk_ntt(bsk, "cpu", keys.KEY_PLANES64)[0]
+        khat = keys.pack_bsk_hats(bsk, "cpu", keys.KEY_PLANES64)[0]
         want = ne.ntt_ext(dl, khat)
         out = torch.full_like(want, 7)
         assert ne.ntt_ext(dl, khat, out=out) is out
