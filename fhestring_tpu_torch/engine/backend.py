@@ -401,12 +401,17 @@ class FheBackend:
         return self._map(lambda *cts: torch.stack(cts, dim=axis), *xs)
 
     def take(self, x: Blocks, idx, axis=0):
-        """np.take semantics along a raw ct axis (idx may be any shape)."""
+        """np.take semantics along a raw ct axis (idx may be any shape).
+
+        Indexes with the flat index and then shapes the result: indexing
+        with a 0-d index tensor would read it back to the host, which waits
+        for the card."""
         axis = axis % x.ct.dim()
         index = torus.to_device(
             torch.as_tensor(np.asarray(idx), dtype=torch.int64), x.ct.device)
-        return Blocks(x.ct[(slice(None),) * axis + (index,)], x.degree,
-                      x.noise_var)
+        out = x.ct[(slice(None),) * axis + (index.reshape(-1),)]
+        shape = x.ct.shape[:axis] + index.shape + x.ct.shape[axis + 1:]
+        return Blocks(out.reshape(shape), x.degree, x.noise_var)
 
     def reshape(self, x: Blocks, shape):
         """Reshape the batch dims of a CHAR tensor (tail [NB, kN+1] kept)."""

@@ -8,8 +8,11 @@ them:
 
 - ``GLOBAL``: always-on tallies, plain Python ints incremented where the
   work is issued: PBS dispatches and their logical and padded widths, the
-  blocking copies of plain data onto the server's device
-  (``host_copies``, counted by ``torus.to_device``), and the steps of the
+  copies of plain data onto the server's device (``host_copies``, counted
+  by ``torus.to_device``, which copies onto a CUDA device without waiting
+  for it), the copies among them that may still wait on the card
+  (``blocking_copies``: those staged in memory that is not page-locked;
+  0 on the CPU, where nothing waits on a card), and the steps of the
   engine's scans (``scan_steps``, counted by ``FheBackend.scan`` and
   ``scan_out``: the length of the chain of dependent steps a request
   carries);
@@ -56,7 +59,8 @@ class Counters:
     pbs_calls: int = 0        # number of pbs_batch dispatches
     pbs_items: int = 0        # sum of logical (unpadded) batch sizes
     pbs_items_padded: int = 0  # sum of padded batch sizes actually executed
-    host_copies: int = 0      # blocking copies of plain data to the device
+    host_copies: int = 0      # copies of plain data to the device
+    blocking_copies: int = 0  # those of them that may wait on the card
     scan_steps: int = 0       # steps of the engine's scans (FheBackend)
 
     def snapshot(self) -> "Counters":

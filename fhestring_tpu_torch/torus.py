@@ -38,14 +38,25 @@ def from_numpy(arr: np.ndarray, device=None) -> torch.Tensor:
 def to_device(t: torch.Tensor, device) -> torch.Tensor:
     """``t``, plain data on the host, copied onto the server's ``device``.
 
-    A blocking copy: on the card the host waits for the stream to drain.
-    Each call adds one to
-    ``metrics.GLOBAL.host_copies`` (on the CPU as well, where nothing is
-    copied, so that the CPU counts what the card does) and is recorded as a
-    ``copy`` span."""
+    On a CUDA device the host does not wait for the card: ``t`` is copied
+    into fresh page-locked memory, so the caller may overwrite or drop it as
+    soon as this returns, and from there onto the card asynchronously on
+    the current stream.  PyTorch's caching host allocator keeps the staging
+    block until that copy has run.  Elsewhere this is ``t.to(device)``.
+
+    Each call adds one to ``metrics.GLOBAL.host_copies`` (on the CPU as
+    well, where nothing is copied, so that the CPU counts what the card
+    does) and is recorded as a ``copy`` span.  A copy onto the card whose
+    staging is not page-locked, which CUDA may make wait on the stream,
+    also adds one to ``metrics.GLOBAL.blocking_copies``."""
     metrics.GLOBAL.host_copies += 1
     with metrics.span("copy"):
-        return t.to(device)
+        if torch.device(device).type != "cuda":
+            return t.to(device)
+        staged = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+        staged.copy_(t)
+        metrics.GLOBAL.blocking_copies += not staged.is_pinned()
+        return staged.to(device, non_blocking=True)
 
 
 def to_numpy(v: torch.Tensor) -> np.ndarray:

@@ -13,6 +13,9 @@ Tolerance: zero.  The kernel, the plain version and the numpy oracle all
 compute exact integer arithmetic, so outputs must be bit-identical.
 """
 
+import dataclasses
+import gc
+
 import numpy as np
 import pytest
 import torch
@@ -1032,10 +1035,23 @@ def test_span_holds_its_kernel_on_the_trace_clock(cuda):
     assert all(abs(e) <= 1_000_000 for pair in ends for e in pair), ends
 
 
-INTERACTIVE = {"contains": "sp", "contains_clear": ("s", "lo"),
-               "find": "sp", "starts_with_clear": ("s", "he"), "eq": "st",
-               "to_upper": "s", "len": "s",
-               "strip_prefix_clear": ("s", "he")}
+# The methods of the benchmark's three mixes, each with its arguments ("s"
+# the string, "p" an encrypted pattern, "t" an encrypted string, else a
+# clear argument) and its copies of plain data onto the card a request
+# (``host_copies``; the CPU counts the same, tests/test_torch_tracing.py).
+MIX_METHODS = {
+    # interactive
+    "contains": ("sp", 2), "contains_clear": (("s", "lo"), 3),
+    "find": ("sp", 9), "starts_with_clear": (("s", "he"), 4),
+    "eq": ("st", 7), "to_upper": ("s", 0), "len": ("s", 2),
+    "strip_prefix_clear": (("s", "he"), 23),
+    # bulk, beside contains, contains_clear and find
+    "replace_clear": (("s", "l", "L"), 26), "to_lower": ("s", 0),
+    "ends_with_clear": (("s", "lo"), 3),
+    # split
+    "split": ("sp", 52), "split_clear": (("s", "l"), 53),
+    "rsplit": ("sp", 52), "rsplit_clear": (("s", "l"), 53),
+}
 
 
 @pytest.fixture(scope="module", params=[P, P64], ids=lambda p: p.name)
@@ -1044,46 +1060,76 @@ def served(request, cuda):
     return ck, ck.get_server_key()
 
 
-@pytest.mark.parametrize("method", sorted(INTERACTIVE))
-def test_sync_warnings_equal_host_copies(served, method):
-    """Under ``set_sync_debug_mode("warn")`` a warm request of each of the
-    interactive cells' methods synchronises the card once for each copy
-    ``host_copies`` counts, at ``torus.to_device``, and elsewhere only
-    where ``FheBackend.take`` indexes with a 0-d index tensor, which reads
-    the index back to the host (a site the counter does not count)."""
-    import inspect
-    import warnings
+def _result_tensors(obj):
+    """Every ciphertext tensor of a method's result, in field order."""
+    if isinstance(obj, torch.Tensor):
+        return [obj]
+    if dataclasses.is_dataclass(obj):
+        return [t for f in dataclasses.fields(obj)
+                for t in _result_tensors(getattr(obj, f.name))]
+    return []
 
-    from fhestring_tpu_torch.engine.backend import FheBackend
 
+@pytest.mark.parametrize("method", sorted(MIX_METHODS))
+def test_methods_do_not_wait_on_the_card(served, method):
+    """Under ``set_sync_debug_mode("error")`` a warm request of each method
+    of the three mixes runs from its start to its return without a call
+    that synchronises the card: its copies of plain data go asynchronously
+    (``host_copies`` as many as before, ``blocking_copies`` none) and
+    ``FheBackend.take`` reads no index back.  The result is bit-equal to
+    the same request with the debug mode off."""
     ck, srv = served
     text = {"s": ck.encrypt("hello", 1), "p": ck.encrypt_no_padding("ll"),
             "t": ck.encrypt("help", 1)}
-    args = [text[a] if a in text else a for a in INTERACTIVE[method]]
-    getattr(srv, method)(*args)          # warm: LUT banks, kernels loaded
+    spec, copies = MIX_METHODS[method]
+    args = [text[a] if a in text else a for a in spec]
+    want = getattr(srv, method)(*args)   # warm: LUT banks, kernels loaded
     torch.cuda.synchronize()
-    before = metrics.GLOBAL.host_copies
-    torch.cuda.set_sync_debug_mode("warn")
+    before = metrics.GLOBAL.snapshot()
+    torch.cuda.set_sync_debug_mode("error")
     try:
-        with warnings.catch_warnings(record=True) as caught:
-            warnings.simplefilter("always")
-            getattr(srv, method)(*args)
+        got = getattr(srv, method)(*args)
     finally:
         torch.cuda.set_sync_debug_mode(0)
     torch.cuda.synchronize()
-    copies = metrics.GLOBAL.host_copies - before
-    syncs = [w for w in caught if "synchroniz" in str(w.message)]
-    sites = {}
-    for w in syncs:
-        key = f"{w.filename.rsplit('fhestring_tpu_torch', 1)[-1]}:{w.lineno}"
-        sites[key] = sites.get(key, 0) + 1
-    print(f"\nsyncs {method}: copies {copies}, warnings {len(syncs)}, "
-          f"sites {sites}")
-    lines, first = inspect.getsourcelines(FheBackend.take)
-    take = (inspect.getsourcefile(FheBackend), range(first,
-                                                     first + len(lines)))
-    at_helper = sum(w.filename == torus.__file__ for w in syncs)
-    at_take = sum(w.filename == take[0] and w.lineno in take[1]
-                  for w in syncs)
-    assert at_helper == copies, sites
-    assert at_helper + at_take == len(syncs), sites
+    d = metrics.GLOBAL.delta(before)
+    assert (d.host_copies, d.blocking_copies) == (copies, 0)
+    got, want = _result_tensors(got), _result_tensors(want)
+    assert len(got) == len(want) > 0
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+def test_copies_survive_their_sources(cuda):
+    """Each source array is overwritten and dropped as soon as
+    ``torus.to_device`` returns, while a long kernel keeps the stream busy,
+    and fresh page-locked blocks of the same sizes are filled with junk
+    meanwhile: the copies read back as the sources were, and the host
+    returned before the stream drained."""
+    rng = np.random.default_rng(18)
+    made = [rng.integers(-2**62, 2**62, size=(33, 7)),       # LUT indices
+            rng.integers(0, 2, size=(5, 9, 1, 1)).astype(bool),  # masks
+            rng.integers(0, 2**63, size=(4, 3, 2049), dtype=np.uint64)]
+    want = [a.copy() for a in made]
+    torch.cuda.synchronize()
+    before = metrics.GLOBAL.snapshot()
+    torch.cuda._sleep(2_000_000_000)     # about a second on an H100
+    outs = []
+    for arr in made:
+        src = (torus.from_numpy(arr) if arr.dtype == np.uint64
+               else torch.from_numpy(arr))
+        outs.append(torus.to_device(src, cuda))
+        arr[...] = ~arr
+        del src
+    made.clear()
+    gc.collect()
+    junk = [torch.empty(o.shape, dtype=o.dtype, pin_memory=True).fill_(1)
+            for o in outs]
+    busy = not torch.cuda.current_stream().query()
+    torch.cuda.synchronize()
+    del junk
+    d = metrics.GLOBAL.delta(before)
+    assert busy, "to_device waited for the stream"
+    assert (d.host_copies, d.blocking_copies) == (3, 0)
+    assert np.array_equal(torus.to_numpy(outs[2]), want[2])
+    for out, w in zip(outs[:2], want[:2]):
+        assert np.array_equal(out.cpu().numpy(), w)

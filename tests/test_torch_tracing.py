@@ -19,6 +19,7 @@ import time
 import numpy as np
 import pytest
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode
 
 from fhestring_tpu.client import ClientKey as JaxClientKey
 from fhestring_tpu.params import PARAM_TEST_ZERO_NOISE as JAX_P
@@ -383,3 +384,61 @@ def test_copy_helper_keeps_the_sites_bits(keys, monkeypatch, site):
     # multi-LUT
     made = 2 if site in ("take", "apply_lut_multi") else 1
     assert metrics.GLOBAL.host_copies - before == made
+
+
+@pytest.mark.parametrize("dtype", [torch.int64, torch.bool])
+def test_to_device_on_the_cpu_counts_one_copy_that_waits_for_nothing(dtype):
+    """On the CPU ``torus.to_device`` is ``t.to(device)``: one
+    ``host_copies``, one ``copy`` span, and no ``blocking_copies``, since
+    nothing waits on a card."""
+    t = torch.ones((3, 2), dtype=dtype)
+    before = metrics.GLOBAL.snapshot()
+    metrics.record_spans(True)
+    out = torus.to_device(t, torch.device("cpu"))
+    metrics.record_spans(False)
+    d = metrics.GLOBAL.delta(before)
+    assert (d.host_copies, d.blocking_copies) == (1, 0)
+    assert [s.name for s in metrics.spans()] == ["copy"]
+    assert out is t
+
+
+class _NoReadBack(TorchDispatchMode):
+    """Refuses ``aten._local_scalar_dense``, the op by which a tensor's
+    value reaches the host as a Python number (on the card it waits for the
+    stream)."""
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        if func is torch.ops.aten._local_scalar_dense.default:
+            raise AssertionError("a tensor was read back to the host")
+        return func(*args, **(kwargs or {}))
+
+
+def _refuse(*args, **kwargs):
+    raise AssertionError("an index tensor became a Python int")
+
+
+@pytest.mark.parametrize("axis", [0, 1, 2, -1])
+@pytest.mark.parametrize("ndim", [0, 1, 2])
+def test_take_equals_np_take_and_reads_no_index_back(keys, monkeypatch,
+                                                     ndim, axis):
+    """``FheBackend.take`` with a 0-d, 1-d or 2-d index, at every axis of
+    the raw ciphertext tensor, gives ``np.take``'s result, and never turns
+    its index tensor into a Python int: ``Tensor.item`` and
+    ``Tensor.__index__`` are refused, and so is the read-back a 0-d index
+    tensor costs inside indexing."""
+    _, srv = keys
+    rng = np.random.default_rng(10 * ndim + axis % 3)
+    ct = torch.from_numpy(rng.integers(-2**62, 2**62, size=(3, 4, 5)))
+    size = ct.shape[axis]
+    idx = rng.integers(0, size, size=(2, 3)[:ndim])
+    want = np.take(ct.numpy(), idx, axis=axis)
+    before = metrics.GLOBAL.host_copies
+    monkeypatch.setattr(torch.Tensor, "item", _refuse)
+    monkeypatch.setattr(torch.Tensor, "__index__", _refuse)
+    with _NoReadBack():
+        got = srv.backend.take(shortint.Blocks(ct, 3, 1.0), idx, axis=axis)
+    monkeypatch.undo()
+    assert metrics.GLOBAL.host_copies - before == 1
+    assert got.ct.shape == want.shape
+    assert np.array_equal(got.ct.numpy(), want)
+    assert (got.degree, got.noise_var) == (3, 1.0)
