@@ -9,13 +9,14 @@ a configuration (a parameter set and how it is served,
 (``fhebench/traffic/<name>.json``).  A run makes the keys and every
 request's ciphertexts from the seed (``scheme``, ``traffic``), packs the
 keys with the program, warms up the cell's own path, then sends requests
-one after another for ``--seconds`` (a closed loop with one client), the
-window closing at the end of the last request begun inside it.  Then it
-decrypts every result, holds each to the plain reference (``reference``)
-and prints one JSON line: ``correct``, ``attempted``, ``failed``, the
-cell's end-to-end metrics (``--trace 0``) or its per-layer metrics
-(``--trace 1``, from a device trace of the window), ``device``, and last
-the numbers compared with their limits.
+for ``--seconds`` from the mix's ``clients`` closed-loop clients (one
+where the mix names none; several only over the service, each on a thread
+of its own), the window closing at the end of the last request begun
+inside it.  Then it decrypts every result, holds each to the plain
+reference (``reference``) and prints one JSON line: ``correct``,
+``attempted``, ``failed``, the cell's end-to-end metrics (``--trace 0``)
+or its per-layer metrics (``--trace 1``, from a device trace of the
+window), ``device``, and last the numbers compared with their limits.
 
 Metrics are found by name: ``fhebench/end_to_end/<name>.py`` and
 ``fhebench/layer_metrics/<name>.py`` each define ``read(window)``, which
@@ -24,7 +25,8 @@ Each method a mix names is a file, ``fhebench/methods/<name>.py``: what a
 request of it sends, how its result decrypts and the reference's answer.
 
 Exit codes: 0 with a result line; 2 without the card(s) the cell asks
-for; 3 if JAX or the JAX package was loaded.  Nothing is printed to
+for, or where its mix asks for clients it cannot have (before any
+set-up); 3 if JAX or the JAX package was loaded.  Nothing is printed to
 standard output in either case.
 """
 
@@ -58,7 +60,9 @@ import json  # noqa: E402
 import os  # noqa: E402
 import subprocess  # noqa: E402
 import sys  # noqa: E402
+import threading  # noqa: E402
 import types  # noqa: E402
+from concurrent.futures import ThreadPoolExecutor  # noqa: E402
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 FORBIDDEN = ("jax", "jaxlib", "flax", "fhestring_tpu")
@@ -66,14 +70,16 @@ FORBIDDEN = ("jax", "jaxlib", "flax", "fhestring_tpu")
 
 @dataclasses.dataclass
 class Done:
-    """One request of the window."""
+    """One request of the window.  With several clients the program's
+    counters and the server's method span also hold other requests' work,
+    so they are left None: the window's ``totals`` hold the counters."""
 
     request: int                 # index into the run's requests
     start_ns: int                # perf_counter_ns around the entry's call
     end_ns: int
-    method_ns: tuple | None      # the server's method (service entry)
-    pbs_calls: int
-    pbs_items: int
+    method_ns: tuple | None      # the server's method (service, 1 client)
+    pbs_calls: int | None
+    pbs_items: int | None
     result: object = None
     error: str | None = None
 
@@ -93,6 +99,8 @@ class Window:
     widths: list                 # the width of every PBS batch dispatched
     sm_count: int
     trace: object = None         # trace.Trace of a --trace 1 run
+    totals: object = None        # the program's counters over the window
+    clients: int = 1             # the mix's concurrent clients
 
     @property
     def served(self) -> list:
@@ -128,19 +136,23 @@ def load_cell(bench: dict, name: str, base: str, root: str
               ) -> tuple[dict, dict]:
     """(configuration, mix) of the workload ``name``: the
     configuration's file as ``BENCHMARK.json`` names it, relative to
-    ``base``; the mix's as ``root/traffic/<name>.json``."""
+    ``base``; the mix's as ``root/traffic/<name>.json``.  A ValueError
+    where the mix asks for clients it cannot have (``traffic.clients``)."""
     from . import traffic
 
     cell = next(w for w in bench["workloads"] if w["name"] == name)
     entry = next(c for c in bench["configs"] if c["name"] == cell["config"])
     with open(os.path.join(base, entry["file"])) as f:
         config = json.load(f)
-    return config, traffic.load(traffic.find(root, cell["traffic"]))
+    mix = traffic.load(traffic.find(root, cell["traffic"]))
+    traffic.clients(mix)
+    return config, mix
 
 
 class TimedKey:
     """The ServerKey the service runs, recording the span of each method
-    the server calls (a benchmark-side proxy: the program is unchanged)."""
+    the server calls (a benchmark-side proxy: the program is unchanged).
+    ``last`` is one request's only while one request is in flight."""
 
     def __init__(self, key, sync):
         self._key, self._sync = key, sync
@@ -247,6 +259,25 @@ def check(window: Window, requests, p: dict, secret, limits: dict,
                             "limit": limits["noise_share"]}}
 
 
+class Dealer:
+    """Numbers the window's requests in the order the clients send them,
+    from 0, one at a time to any number of threads: ``take`` gives None
+    once ``deadline_ns`` has passed and ``at_least`` have been sent."""
+
+    def __init__(self, deadline_ns: int, at_least: int):
+        self.deadline_ns, self.at_least = deadline_ns, at_least
+        self.sent = 0
+        self._lock = threading.Lock()
+
+    def take(self) -> int | None:
+        with self._lock:
+            if (time.perf_counter_ns() >= self.deadline_ns
+                    and self.sent >= self.at_least):
+                return None
+            self.sent += 1
+            return self.sent - 1
+
+
 def card() -> dict:
     """The card's name and power limit as nvidia-smi reads them."""
     try:
@@ -267,7 +298,13 @@ def run_cell(bench: dict, workload: str, seed: int, seconds: float,
     """One run; returns the result line's object.  ``key_hook`` (the
     control's only) changes the raw bootstrap key before the program packs
     it.  ``min_requests`` (the tests' only) keeps the window open until it
-    has sent that many requests, however slow the machine."""
+    has sent that many requests, however slow the machine.
+
+    The window opens as the clients start and closes at the latest end of
+    a request; each client sends until ``seconds`` have passed, and every
+    request sent is answered and counted.  One client runs on this thread,
+    as a loop; several run on threads of their own, each with its own
+    ``RemoteServerKey``, against the one server."""
     import torch
 
     from fhestring_tpu_torch import metrics
@@ -277,6 +314,8 @@ def run_cell(bench: dict, workload: str, seed: int, seconds: float,
 
     t_start = T_START if t_start is None else t_start
     config, mix = load_cell(bench, workload, base, root)
+    n_clients = traffic.clients(mix)
+    one = n_clients == 1
     p = config["params"]
     dev = torch.device(device)
     on_card = dev.type == "cuda"
@@ -310,36 +349,37 @@ def run_cell(bench: dict, workload: str, seed: int, seconds: float,
         record_pbs(n_items, n_padded)
     metrics.record_pbs = counted
 
-    proxy, server = None, None
+    proxy, server, entries = None, None, [key]
     if service:
         from fhestring_tpu_torch.service import FheStringServer, RemoteServerKey
 
-        proxy = TimedKey(key, sync)
-        server = FheStringServer(proxy).start()
-        remote = RemoteServerKey(server.address, device="cpu", timeout=300)
+        proxy = TimedKey(key, sync) if one else None
+        server = FheStringServer(proxy or key).start()
+        entries = [RemoteServerKey(server.address, device="cpu", timeout=300)
+                   for _ in range(n_clients)]
     try:
-        def call(i: int) -> Done:
+        def call(i: int, entry) -> Done:
             method = requests[i].method
-            before = metrics.GLOBAL.snapshot()
+            before = metrics.GLOBAL.snapshot() if one else None
             if proxy is not None:
                 proxy.last = None
             t0 = time.perf_counter_ns()
             res, err = None, None
             try:
-                if service:
-                    res = getattr(remote, method)(*args[i])
-                else:
-                    res = getattr(key, method)(*args[i])
+                res = getattr(entry, method)(*args[i])
+                if not service:
                     sync()
             except Exception as e:  # a failed request is counted, not fatal
                 err = repr(e)
             t1 = time.perf_counter_ns()
+            if not one:
+                return Done(i, t0, t1, None, None, None, res, err)
             d = metrics.GLOBAL.delta(before)
             return Done(i, t0, t1, proxy.last if proxy else None,
                         d.pbs_calls, d.pbs_items, res, err)
 
         for i in warmup_requests(requests):
-            call(i)
+            call(i, entries[0])
         part("warmup")
         if on_card:
             torch.cuda.reset_peak_memory_stats(dev)
@@ -347,17 +387,27 @@ def run_cell(bench: dict, workload: str, seed: int, seconds: float,
         setup_s = time.perf_counter() - t_start
 
         recorder = Recorder() if trace else None
-        done = []
+        sent = {}  # order of sending -> Done
         offset = time.time_ns() - time.perf_counter_ns()
         if recorder is not None:
             recorder.start()
+        counters = metrics.GLOBAL.snapshot()
         w0 = time.perf_counter_ns()
-        deadline = w0 + int(seconds * 1e9)
-        i = 0
-        while time.perf_counter_ns() < deadline or len(done) < min_requests:
-            done.append(call(i % len(requests)))
-            i += 1
-        w1 = done[-1].end_ns
+        dealer = Dealer(w0 + int(seconds * 1e9), min_requests)
+
+        def client(entry) -> None:
+            # the k-th request sent is the deck's (k mod its length)-th
+            while (k := dealer.take()) is not None:
+                sent[k] = call(k % len(requests), entry)
+
+        if one:
+            client(entries[0])
+        else:
+            with ThreadPoolExecutor(n_clients) as pool:
+                list(pool.map(client, entries))
+        done = [sent[k] for k in range(len(sent))]
+        w1 = max(d.end_ns for d in done)
+        totals = metrics.GLOBAL.delta(counters)
         if recorder is not None:
             sync()
             recorder.stop()
@@ -370,7 +420,7 @@ def run_cell(bench: dict, workload: str, seed: int, seconds: float,
     sm_count = (torch.cuda.get_device_properties(dev).multi_processor_count
                 if on_card else 0)
     window = Window(config, done, (w1 - w0) / 1e9, setup_s, widths,
-                    sm_count)
+                    sm_count, totals=totals, clients=n_clients)
     if recorder is not None:
         window.trace = summarize(recorder.events(), w0 + offset, w1 + offset,
                                  host_spans(window, requests, offset))
@@ -417,20 +467,28 @@ def warmup_requests(requests) -> list[int]:
 
 
 def host_spans(window: Window, requests, offset: int) -> list:
-    """(start, end, label) of what the host did in each request, in the
-    trace's clock: the server's method, and the service's way in and out
-    around it."""
+    """Sorted, disjoint (start, end, label) of what the host did in each
+    request, in the trace's clock: the server's method, and the service's
+    way in and out around it.  A request with no span of the server's
+    method (in process, or a call that failed) is one stretch, ``method``;
+    with several clients, whose server spans are not told apart, one
+    stretch ``request``.  Where their requests overlap, each stretch goes
+    to the one sent last (``trace.disjoint``)."""
+    from .trace import disjoint
+
     spans = []
     for d in window.done:
         method = requests[d.request].method
         if d.method_ns is None:
-            spans.append((d.start_ns, d.end_ns, f"method {method}"))
+            kind = "method" if window.clients == 1 else "request"
+            spans.append((d.start_ns, d.end_ns, f"{kind} {method}"))
             continue
         m0, m1 = d.method_ns
         spans += [(d.start_ns, m0, "service, to the server"),
                   (m0, m1, f"method {method}"),
                   (m1, d.end_ns, "service, back to the client")]
-    return [(a + offset, b + offset, label) for a, b, label in spans]
+    return disjoint([(a + offset, b + offset, label)
+                     for a, b, label in spans])
 
 
 def breakdown(tr) -> dict:
@@ -460,6 +518,11 @@ def main(argv=None) -> int:
     if cell is None:
         print(f"no workload {args.workload!r} in BENCHMARK.json",
               file=sys.stderr)
+        return 2
+    try:
+        load_cell(bench, args.workload, ".", HERE)
+    except ValueError as e:
+        print(f"{args.workload}: {e}", file=sys.stderr)
         return 2
     import torch
 

@@ -5,7 +5,8 @@
 ``traffic/tiny.json`` and returns (bench, base, root) for
 ``run.run_cell``: two cells, ``tiny64.tiny`` and ``tiny32.tiny``, on the
 test sizes of the two configurations (n=32, N=256: seconds, not hours, on
-a CPU), reporting every metric the real cells report.
+a CPU), reporting every metric the real cells report.  ``tiny_clients``
+serves the same cells to 3 concurrent clients.
 """
 
 from __future__ import annotations
@@ -31,13 +32,15 @@ def pytest_configure(config):
     torch.set_num_threads(min(2, torch.get_num_threads()))
 
 
-def make_tiny(tmp_path, entry: str = "in_process"):
+def make_tiny(tmp_path, entry: str = "in_process", clients: int = 1):
     root = tmp_path / "fhebench"
     shutil.copytree(PKG, root, ignore=shutil.ignore_patterns(
         "tests", "__pycache__"))
     with open(os.path.join(HERE, "configs", "tiny_mix.json")) as f:
         mix = json.load(f)
     mix["entry"] = entry
+    if clients != 1:
+        mix["clients"] = clients
     (root / "traffic" / "tiny.json").write_text(json.dumps(mix))
     with open(os.path.join(REPO, "BENCHMARK.json")) as f:
         bench = json.load(f)
@@ -63,3 +66,8 @@ def tiny_bench(tmp_path):
 @pytest.fixture
 def tiny_service(tmp_path):
     return make_tiny(tmp_path, "service")
+
+
+@pytest.fixture
+def tiny_clients(tmp_path):
+    return make_tiny(tmp_path, "service", clients=3)

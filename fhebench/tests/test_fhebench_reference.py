@@ -1,4 +1,6 @@
-"""The plain reference answers as Python's ``str`` does."""
+"""The plain reference answers as Python's ``str`` does; a split's as
+Rust's ``str::split`` and ``str::rsplit`` do, by Python's ``split`` and
+``rfind``, after the reference binary's ``trim_vector``."""
 
 from __future__ import annotations
 
@@ -11,7 +13,29 @@ from fhebench import methods
 
 METHODS = ("contains", "contains_clear", "find", "starts_with_clear",
            "ends_with_clear", "eq", "len", "to_upper", "to_lower",
-           "replace_clear", "strip_prefix_clear")
+           "replace_clear", "strip_prefix_clear", "split", "split_clear",
+           "rsplit", "rsplit_clear")
+SPLITS = ("split", "split_clear", "rsplit", "rsplit_clear")
+
+
+def trimmed(pieces: list[str]) -> list[bytes]:
+    """``trim_vector``: the leading and trailing empty pieces dropped."""
+    while pieces and not pieces[0]:
+        pieces = pieces[1:]
+    while pieces and not pieces[-1]:
+        pieces = pieces[:-1]
+    return [x.encode() for x in pieces]
+
+
+def rust_rsplit(s: str, p: str) -> list[str]:
+    """Rust's ``s.rsplit(p)``: the rightmost match that ends before the
+    last one begins, again and again."""
+    out, end = [], len(s)
+    while (i := s.rfind(p, 0, end)) >= 0:
+        out.append(s[i + len(p):end])
+        end = i
+    out.append(s[:end])
+    return out
 
 
 def python_str(method: str, s: str, p: str, to: str):
@@ -34,6 +58,10 @@ def python_str(method: str, s: str, p: str, to: str):
         return s.lower().encode()
     if method == "replace_clear":
         return s.replace(p, to).encode()
+    if method in ("split", "split_clear"):
+        return trimmed(s.split(p)), int(p in s)
+    if method in ("rsplit", "rsplit_clear"):
+        return trimmed(rust_rsplit(s, p)), int(p in s)
     if s.startswith(p):
         return (s[len(p):].encode(), 1)
     return (None, 0)
@@ -56,6 +84,9 @@ def cases(seed: int, count: int):
 @pytest.mark.parametrize("method", METHODS)
 def test_reference_equals_python_str(method):
     for s, p, to in cases(METHODS.index(method), 400):
+        if method in SPLITS and not p:
+            continue  # a split's reference takes patterns of 1 byte or
+            # more, as the traffic sends; Python refuses an empty one
         got = methods.load(method).answer(s.encode(), p.encode(),
                                           to.encode())
         assert got == python_str(method, s, p, to), (method, s, p, to)
@@ -63,7 +94,7 @@ def test_reference_equals_python_str(method):
 
 def test_unknown_method_is_refused():
     with pytest.raises(ValueError):
-        methods.load("split")
+        methods.load("no_such_method")
 
 
 def test_every_method_file_is_tested_here():

@@ -10,6 +10,10 @@ From its raw events this module takes:
 - ``idle_by_span``: the seconds of the window that the union leaves
   uncovered, by the host span (the benchmark's own) each gap fell in.
 
+Host spans overlap where several clients have requests in flight;
+``disjoint`` gives each stretch of host time to one of them before the
+gaps are laid to them, so that no second is counted twice.
+
 Library kernels (PyTorch's own, cuBLAS and CUTLASS products) are told
 from the program's hand-written ones by name (``is_library``).
 """
@@ -18,6 +22,7 @@ from __future__ import annotations
 
 import bisect
 import dataclasses
+import heapq
 
 LIBRARY_MARKS = ("at::", "cutlass", "cublas", "gemm", "xmma", "nvjet",
                  "memcpy", "memset", "splitk", "cub::", "thrust::")
@@ -51,6 +56,30 @@ def union(intervals):
         else:
             out.append([start, end])
     return out
+
+
+def disjoint(spans) -> list:
+    """Sorted, disjoint (start, end, label) from spans that may overlap:
+    each stretch goes to the span begun latest of those that cover it (of
+    two begun at once, the later in the list).  Disjoint spans come back
+    as they were, less any of no length."""
+    order = sorted(range(len(spans)), key=lambda j: spans[j][0])
+    bounds = sorted({t for s in spans for t in s[:2]})
+    covering, out, k = [], [], 0  # heap of (-start, -index)
+    for a, b in zip(bounds, bounds[1:]):
+        while k < len(order) and spans[order[k]][0] <= a:
+            heapq.heappush(covering, (-spans[order[k]][0], -order[k]))
+            k += 1
+        while covering and spans[-covering[0][1]][1] <= a:
+            heapq.heappop(covering)
+        if not covering:
+            continue
+        j = -covering[0][1]
+        if out and out[-1][3] == j and out[-1][1] == a:
+            out[-1][1] = b
+        else:
+            out.append([a, b, spans[j][2], j])
+    return [(a, b, label) for a, b, label, _ in out]
 
 
 def summarize(events, t0: int, t1: int, spans) -> Trace:

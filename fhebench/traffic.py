@@ -27,6 +27,13 @@ A matching pattern lies where the method's file says
 (``methods/<name>.py`` ``PATTERN``: a prefix, a suffix, the whole string,
 or anywhere); a method with ``REPLACEMENT`` gets random characters of the
 pattern's length to put in its place.
+
+A mix may ask for ``clients``, the number of concurrent closed-loop
+clients of the service (1 where it names none): each client sends its next
+request when its last one has been answered.  Several clients need the
+``service`` entry: an in-process mix is a batch job beside its key, and
+the program's ``ServerKey`` makes no promise to be called from several
+threads at once.
 """
 
 from __future__ import annotations
@@ -58,6 +65,20 @@ def load(path: str) -> dict:
 def find(root: str, name: str) -> str:
     """The file of the mix ``name`` under the benchmark's folder."""
     return os.path.join(root, "traffic", f"{name}.json")
+
+
+def clients(mix: dict) -> int:
+    """The mix's concurrent clients; a ValueError where they are not a
+    whole number from 1, or several of an ``in_process`` entry."""
+    n = mix.get("clients", 1)
+    if isinstance(n, bool) or not isinstance(n, int) or n < 1:
+        raise ValueError(f"clients must be a whole number from 1, not {n!r}")
+    if n > 1 and mix["entry"] != "service":
+        raise ValueError(
+            f"{n} clients need the service entry, not {mix['entry']!r}: an "
+            "in-process mix is one batch job calling the ServerKey, which "
+            "makes no promise to be thread-safe")
+    return n
 
 
 def spread(lo: int, hi: int, count: int) -> list[int]:
