@@ -270,7 +270,7 @@ class FheBackend:
         """The engine's sequential hot loops as a Python loop: the spec is
         ClearBackend.scan.  Every step runs eagerly, so each PBS inside the
         body is dispatched, and counted, once per step."""
-        metrics.GLOBAL.scan_steps += length
+        metrics.count(scan_steps=length)
         with metrics.span("engine.scan", steps=length):
             for i in range(length):
                 carry = body(carry, {k: v[i] for k, v in xs.items()})
@@ -280,7 +280,7 @@ class FheBackend:
         """scan with the per-step Blocks outputs stacked along a new leading
         axis (the engine keeps their metadata constant with declare)."""
         ys = []
-        metrics.GLOBAL.scan_steps += length
+        metrics.count(scan_steps=length)
         with metrics.span("engine.scan", steps=length):
             for i in range(length):
                 carry, y = body(carry, {k: v[i] for k, v in xs.items()})

@@ -7,7 +7,12 @@ the one chokepoint every LUT evaluation passes through
 them:
 
 - ``GLOBAL``: always-on tallies, plain Python ints incremented where the
-  work is issued: PBS dispatches and their logical and padded widths, the
+  work is issued, each under one lock (``count``), since several request
+  threads of one server count at once: PBS dispatches and their logical
+  and padded widths, the batches requests post to the shortint layer's
+  coalescer (``pbs_posts``: one a ``_pbs_padded`` call; equal to
+  ``pbs_calls`` where nothing merges) and the host time from each post to
+  the start of the dispatch that carries it (``pbs_wait_ns``), the
   copies of plain data onto the server's device (``host_copies``, counted
   by ``torus.to_device``, which copies onto a CUDA device without waiting
   for it), the copies among them that may still wait on the card
@@ -29,8 +34,13 @@ and ``client.decode`` (``service.RemoteServerKey``); ``service.receive``,
 ``ServerKey`` call; on the card it ends with a ``sync`` span, a synchronise
 of the device, so that it holds the method's device work);
 ``engine.scan`` with its ``steps`` (one per ``FheBackend.scan`` or
-``scan_out``); ``pbs.dispatch`` with its logical ``width`` (one per batch
-that reaches ``pbs_batch``); ``copy`` (each ``torus.to_device``).
+``scan_out``); ``pbs.dispatch`` with its logical ``width`` and the
+``posts`` it merges (one per batch that reaches ``pbs_batch``);
+``pbs.wait`` with the ``posts`` of the dispatch it waited for (one per
+post whose thread waited for other requests' posts or for another thread's
+dispatch of it, and one per wait of a completed set for the card to begin
+the previous merged dispatch, from the start of the wait to its end);
+``copy`` (each ``torus.to_device``).
 A span's ``parent`` is the innermost span open on the same thread; its
 ``request`` is shared by every span of one request, on the client's thread
 and the server's: the client sends its id in the request's header and the
@@ -62,6 +72,8 @@ class Counters:
     host_copies: int = 0      # copies of plain data to the device
     blocking_copies: int = 0  # those of them that may wait on the card
     scan_steps: int = 0       # steps of the engine's scans (FheBackend)
+    pbs_posts: int = 0        # batches posted to the coalescer
+    pbs_wait_ns: int = 0      # sum over posts: post to its dispatch's start
 
     def snapshot(self) -> "Counters":
         return dataclasses.replace(self)
@@ -72,13 +84,21 @@ class Counters:
 
 
 GLOBAL = Counters()
+_counting = threading.Lock()
+
+
+def count(**amounts: int) -> None:
+    """Add each amount to the ``GLOBAL`` field of its name, all under one
+    lock: a bare ``+=`` loses counts when threads switch between its read
+    and its write."""
+    with _counting:
+        for name, amount in amounts.items():
+            setattr(GLOBAL, name, getattr(GLOBAL, name) + int(amount))
 
 
 def record_pbs(n_items: int, n_padded: int) -> None:
     """Called by ShortintContext on every batched-PBS dispatch."""
-    GLOBAL.pbs_calls += 1
-    GLOBAL.pbs_items += int(n_items)
-    GLOBAL.pbs_items_padded += int(n_padded)
+    count(pbs_calls=1, pbs_items=n_items, pbs_items_padded=n_padded)
 
 
 class Span(NamedTuple):
@@ -156,16 +176,18 @@ class _Open:
         return False
 
 
-def span(name: str, width: int | None = None, steps: int | None = None):
+def span(name: str, width: int | None = None, steps: int | None = None,
+         posts: int | None = None):
     """A context manager that records ``name`` while the recorder is on;
-    ``width`` (a PBS batch's logical items) and ``steps`` (a scan's) go
-    into the span's attrs."""
+    ``width`` (a PBS batch's logical items), ``steps`` (a scan's) and
+    ``posts`` (the requests' batches a dispatch merges) go into the span's
+    attrs.  Entering it gives the open span, whose ``attrs`` may still be
+    added to, or None while the recorder is off."""
     if not _on:
         return _OFF
-    attrs = {} if width is None else {"width": int(width)}
-    if steps is not None:
-        attrs["steps"] = int(steps)
-    return _Open(name, attrs)
+    given = {"width": width, "steps": steps, "posts": posts}
+    return _Open(name, {k: int(v) for k, v in given.items()
+                        if v is not None})
 
 
 class _Request:
@@ -220,6 +242,7 @@ def span_totals(records=None) -> dict:
 
 def reset() -> None:
     """Zero the counters and drop the recorded spans."""
-    for f in dataclasses.fields(GLOBAL):
-        setattr(GLOBAL, f.name, 0)
+    with _counting:
+        for f in dataclasses.fields(GLOBAL):
+            setattr(GLOBAL, f.name, 0)
     _spans.clear()

@@ -14,6 +14,12 @@ is on (``metrics.record_spans``); a method called from inside another
 records none, and the span ends after a synchronise of the key's device
 (a ``sync`` span of its own), so that it holds the method's device work.
 While the recorder is off the server does not synchronise.
+
+The outermost public method of a thread is one member of the shortint
+layer's coalescer from its start to its return (``batching``): while
+several threads are inside methods of one ``ServerKey``, their PBS batches
+go to the card merged.  So a ``ServerKey`` may be called from several
+threads at once, as ``service.FheStringServer`` calls it.
 """
 
 from __future__ import annotations
@@ -259,7 +265,7 @@ class ServerKey:
         return self._mk_split(*self.engine.split_ascii_whitespace(s.blocks))
 
 
-_inside = threading.local()    # .method: a traced method is running
+_inside = threading.local()    # .method: a public method is running
 
 
 def _traced(name: str, method):
@@ -267,16 +273,22 @@ def _traced(name: str, method):
 
     @functools.wraps(method)
     def traced(self, *args):
-        if not metrics.recording() or getattr(_inside, "method", False):
+        if getattr(_inside, "method", False):
             return method(self, *args)
+        sc = self.backend.sc
         _inside.method = True
+        sc.batches.enter()
         try:
-            with metrics.span(label):
-                out = method(self, *args)
-                device = self.backend.sc.device
-                if device.type == "cuda":
+            with metrics.span(label) as span:
+                try:
+                    out = method(self, *args)
+                finally:
+                    # before the sync, so that no other request's batch
+                    # waits on it
+                    sc.batches.leave()
+                if span is not None and sc.device.type == "cuda":
                     with metrics.span("sync"):
-                        torch.cuda.synchronize(device)
+                        torch.cuda.synchronize(sc.device)
             return out
         finally:
             _inside.method = False

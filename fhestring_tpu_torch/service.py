@@ -12,9 +12,17 @@ Protocol (length-prefixed JSON header + npz payloads over TCP):
     client -> server: {"op": "contains", "clear_args": [...]} + cts
     server -> client: {"ok": true, "kind": "fhe_char"} + result ct
 
-Single-threaded, one request per connection.  The server runs each request
-on the device its key lives on; a client's results land on the device the
-``RemoteServerKey`` was given.
+One request per connection, each connection on a thread of its own, so
+that many clients are served at once: their requests run concurrently on
+the one ``ServerKey``, whose shortint layer merges their bootstraps into
+shared PBS batches (``batching``).  The listen backlog holds 256
+connections, so clients do not wait on the accept queue.  The server runs
+each request on the device its key lives on; a client's results land on
+the device the ``RemoteServerKey`` was given.  On a card the server copies
+a request's ciphertexts up without waiting (``torus.upload``) and reads
+its result back with the thread asleep until the card has run it
+(``torus.to_numpy``), so that the threads waiting on the card hold no CPU
+core.
 
 While the span recorder is on (``metrics.record_spans``) the client adds
 its request id to the header (``"request"``), and both ends record their
@@ -49,13 +57,15 @@ def _send(sock: socket.socket, header: dict, blobs: list[bytes]) -> None:
         sock.sendall(struct.pack("<Q", len(b)) + b)
 
 
-def _recv_exact(sock: socket.socket, n: int) -> bytes:
-    buf = b""
-    while len(buf) < n:
-        chunk = sock.recv(n - len(buf))
-        if not chunk:
+def _recv_exact(sock: socket.socket, n: int) -> bytearray:
+    buf = bytearray(n)
+    view = memoryview(buf)
+    got = 0
+    while got < n:
+        k = sock.recv_into(view[got:])
+        if not k:
             raise ConnectionError("peer closed")
-        buf += chunk
+        got += k
     return buf
 
 
@@ -79,8 +89,8 @@ def _ct_to_bytes(blocks: Blocks) -> bytes:
 
 def _ct_from_bytes(b: bytes, device) -> Blocks:
     data = np.load(io.BytesIO(b), allow_pickle=False)
-    return Blocks(torus.from_numpy(data["ct"], device), int(data["degree"]),
-                  float(data["noise_var"]))
+    return Blocks(torus.upload(torus.from_numpy(data["ct"]), device),
+                  int(data["degree"]), float(data["noise_var"]))
 
 
 def _pack_result(res):
@@ -137,9 +147,20 @@ _OPS = {
 }
 
 
+class _ThreadingServer(socketserver.ThreadingTCPServer):
+    """One daemon thread a connection; ``server_close`` joins none of
+    them, so that ``stop`` returns at once.  The listen queue holds 256
+    connections, so that a crowd of clients connecting at once is
+    queued, not refused."""
+
+    daemon_threads = True
+    block_on_close = False
+    request_queue_size = 256
+
+
 class FheStringServer:
     """Owns a ServerKey (evaluation keys only); serves string methods on
-    the device the key lives on."""
+    the device the key lives on, each connection on a thread of its own."""
 
     def __init__(self, server_key, host: str = "127.0.0.1", port: int = 0):
         self.server_key = server_key
@@ -161,10 +182,13 @@ class FheStringServer:
                         with metrics.span("service.send"):
                             _send(self.request, rh, rb)
                     except Exception as e:  # report, don't kill the server
-                        _send(self.request, {"ok": False, "error": repr(e)},
-                              [])
+                        try:
+                            _send(self.request,
+                                  {"ok": False, "error": repr(e)}, [])
+                        except OSError:  # the client has gone
+                            pass
 
-        self._tcp = socketserver.TCPServer((host, port), Handler)
+        self._tcp = _ThreadingServer((host, port), Handler)
         self.address = self._tcp.server_address
         self._thread = threading.Thread(target=self._tcp.serve_forever,
                                         daemon=True)

@@ -20,6 +20,7 @@ import numpy as np
 import torch
 
 from . import metrics, parallel, torus
+from .batching import Coalescer, card_fence
 from .crypto.keys import DeviceServerKeys, pack_luts
 from .crypto.pbs import pbs_batch, served_mode
 from .params import CryptoParams
@@ -49,7 +50,8 @@ def _with_body_added(ct: torch.Tensor, value: int) -> torch.Tensor:
 
 
 class ShortintContext:
-    """Server-side evaluator: owns device keys and a LUT cache."""
+    """Server-side evaluator: owns device keys, a LUT cache and the
+    coalescer (``batching``) that merges concurrent requests' batches."""
 
     def __init__(self, keys: DeviceServerKeys):
         self.keys = keys
@@ -63,6 +65,10 @@ class ShortintContext:
         # A torch.distributed process group while the server runs
         # lane-sharded (parallel.lane_sharded), else None.
         self.group = None
+        self.batches = Coalescer(
+            self._dispatch,
+            (lambda: card_fence(self.device))
+            if self.device.type == "cuda" else None)
 
     # -- constructors -------------------------------------------------------
     def trivial(self, values) -> Blocks:
@@ -115,14 +121,26 @@ class ShortintContext:
 
     # -- LUT evaluation (PBS) -------------------------------------------------
     def _bank_for(self, tables: tuple[tuple[int, ...], ...]) -> torch.Tensor:
-        if tables not in self._lut_cache:
-            self._lut_cache[tables] = pack_luts(
-                [list(t) for t in tables], self.params, self.device)
-        return self._lut_cache[tables]
+        bank = self._lut_cache.get(tables)
+        if bank is None:
+            # two threads may pack the same tables; both then use the one
+            # that setdefault keeps, so that equal banks are one tensor
+            bank = self._lut_cache.setdefault(tables, pack_luts(
+                [list(t) for t in tables], self.params, self.device))
+        return bank
 
     def _pbs_padded(self, flat: torch.Tensor, idx: torch.Tensor,
                     bank: torch.Tensor) -> torch.Tensor:
-        """Run pbs_batch on a batch of bounded width.
+        """Bootstrap ``flat`` through ``bank[idx]``: a post to the
+        coalescer, which dispatches it merged with the batches of the
+        other requests in flight (``batching``), or alone where there are
+        none."""
+        return self.batches.post(flat, idx, bank)
+
+    def _dispatch(self, flat: torch.Tensor, idx: torch.Tensor,
+                  bank: torch.Tensor, posts: int = 1) -> torch.Tensor:
+        """Run pbs_batch on a batch of bounded width, made of ``posts``
+        requests' posts.
 
         Batches wider than the chunk size run in chunks (bounds the
         keyswitch and accumulator memory).  On CPU the batch is padded to a
@@ -133,21 +151,22 @@ class ShortintContext:
         ``parallel.lane_sharded`` the batch is sharded over the process
         group (``parallel.pbs_batch_sharded``) and counted once, as one
         process counts it.  Each batch that
-        reaches ``pbs_batch`` is one ``pbs.dispatch`` span."""
+        reaches ``pbs_batch`` is one ``pbs.dispatch`` span and one
+        ``metrics.record_pbs``."""
         n = flat.shape[0]
         on_cpu = flat.device.type == "cpu"
         max_chunk = 4096 if on_cpu else 8192
         if n > max_chunk:
             return torch.cat([
-                self._pbs_padded(flat[s:s + max_chunk], idx[s:s + max_chunk],
-                                 bank)
+                self._dispatch(flat[s:s + max_chunk], idx[s:s + max_chunk],
+                               bank, posts)
                 for s in range(0, n, max_chunk)])
         if on_cpu:
             padded = max(8, 1 << (n - 1).bit_length()) if n > 1 else 8
         else:
             padded = n
         metrics.record_pbs(n, padded)
-        with metrics.span("pbs.dispatch", width=n):
+        with metrics.span("pbs.dispatch", width=n, posts=posts):
             if padded != n:
                 flat = torch.cat([flat,
                                   flat.new_zeros((padded - n, flat.shape[1]))])

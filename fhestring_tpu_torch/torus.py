@@ -35,6 +35,24 @@ def from_numpy(arr: np.ndarray, device=None) -> torch.Tensor:
     return torch.from_numpy(arr.view(np.int64).copy()).to(device)
 
 
+def _staged(t: torch.Tensor, device) -> tuple[torch.Tensor, bool]:
+    """``t`` copied into fresh page-locked memory and from there onto the
+    CUDA ``device`` on the current stream, without waiting for the card;
+    and whether the staging is page-locked."""
+    staged = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+    staged.copy_(t)
+    return staged.to(device, non_blocking=True), staged.is_pinned()
+
+
+def upload(t: torch.Tensor, device) -> torch.Tensor:
+    """``t``, data on the host, copied onto ``device`` as ``to_device``
+    copies it, and counted nowhere: the service's copies of the
+    ciphertexts it receives, which are no part of a method's work."""
+    if torch.device(device).type != "cuda":
+        return t.to(device)
+    return _staged(t, device)[0]
+
+
 def to_device(t: torch.Tensor, device) -> torch.Tensor:
     """``t``, plain data on the host, copied onto the server's ``device``.
 
@@ -49,19 +67,32 @@ def to_device(t: torch.Tensor, device) -> torch.Tensor:
     does) and is recorded as a ``copy`` span.  A copy onto the card whose
     staging is not page-locked, which CUDA may make wait on the stream,
     also adds one to ``metrics.GLOBAL.blocking_copies``."""
-    metrics.GLOBAL.host_copies += 1
     with metrics.span("copy"):
         if torch.device(device).type != "cuda":
+            metrics.count(host_copies=1)
             return t.to(device)
-        staged = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
-        staged.copy_(t)
-        metrics.GLOBAL.blocking_copies += not staged.is_pinned()
-        return staged.to(device, non_blocking=True)
+        out, pinned = _staged(t, device)
+        metrics.count(host_copies=1, blocking_copies=not pinned)
+        return out
 
 
 def to_numpy(v: torch.Tensor) -> np.ndarray:
-    """int64 tensor -> uint64 numpy array with the same bits."""
-    return v.detach().cpu().contiguous().numpy().view(np.uint64)
+    """int64 tensor -> uint64 numpy array with the same bits.
+
+    From a CUDA device the copy goes into page-locked memory on the current
+    stream, and the thread sleeps on an event until the card has run it.
+    A plain ``.cpu()`` spins a CPU core in its synchronise meanwhile; a
+    server whose many request threads wait for their results at once would
+    take the cores its other threads need."""
+    v = v.detach()
+    if v.device.type == "cuda":
+        host = torch.empty(v.shape, dtype=v.dtype, pin_memory=True)
+        host.copy_(v, non_blocking=True)
+        copied = torch.cuda.Event(blocking=True)
+        copied.record(torch.cuda.current_stream(v.device))
+        copied.synchronize()
+        v = host
+    return v.contiguous().numpy().view(np.uint64)
 
 
 def add(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:

@@ -1133,3 +1133,106 @@ def test_copies_survive_their_sources(cuda):
     assert np.array_equal(torus.to_numpy(outs[2]), want[2])
     for out, w in zip(outs[:2], want[:2]):
         assert np.array_equal(out.cpu().numpy(), w)
+
+
+def test_the_service_copies_up_without_waiting_and_reads_back_asleep(cuda):
+    """While a long kernel keeps the stream busy, the service's decode of a
+    received ciphertext returns before the stream drains, and a read-back
+    of a result waits for the card with its thread asleep (its CPU time a
+    small part of the wait, where a spinning synchronise would take the
+    whole); both give the bits they were given."""
+    import time
+
+    from fhestring_tpu_torch import service
+    rng = np.random.default_rng(20)
+    arr = rng.integers(0, 2**63, size=(6, 4, 2049), dtype=np.uint64)
+    blob = service._ct_to_bytes(shortint.Blocks(torus.from_numpy(arr), 3,
+                                                1.0))
+    torch.cuda.synchronize()
+    torch.cuda._sleep(2_000_000_000)     # about a second on an H100
+    got = service._ct_from_bytes(blob, cuda)
+    busy = not torch.cuda.current_stream().query()
+    assert busy, "the decode waited for the stream"
+    assert got.ct.device.type == "cuda"
+    torch.cuda._sleep(2_000_000_000)
+    cpu0, wall0 = time.thread_time(), time.perf_counter()
+    back = torus.to_numpy(got.ct)
+    cpu, wall = time.thread_time() - cpu0, time.perf_counter() - wall0
+    assert wall > 0.3, wall
+    assert cpu < 0.2 * wall, (cpu, wall)
+    assert np.array_equal(back, arr)
+
+
+# (method, string, pattern or clear argument, Python's answer), one a client
+SERVED_TOGETHER = [
+    ("contains", "hello", "ll", 1), ("contains_clear", "abc", "z", 0),
+    ("find", "abcab", "ca", 2), ("starts_with_clear", "hey you", "he", 1),
+    ("eq", "same", "same", 1), ("to_upper", "aZ.q", None, "AZ.Q"),
+    ("len", "four", None, 4), ("strip_prefix_clear", "abc", "a", ("bc", 1)),
+]
+
+
+def test_concurrent_requests_get_their_own_bits(served):
+    """8 clients of one server at once, their first batches held until all
+    have posted: each result is bit-identical to the same request served
+    alone on the card and decrypts to Python's answer, and their batches
+    went to the card merged."""
+    import threading
+    import time
+
+    from fhestring_tpu_torch.service import FheStringServer, RemoteServerKey
+
+    ck, srv = served
+
+    def args(method, string, arg):
+        s = ck.encrypt(string, 1)
+        if arg is None:
+            return (s,)
+        if method in ("contains", "find"):
+            return (s, ck.encrypt_no_padding(arg))
+        if method == "eq":
+            return (s, ck.encrypt(arg, 1))
+        return (s, arg)
+    calls = [(m, args(m, s, a)) for m, s, a, _ in SERVED_TOGETHER]
+    alone = [_result_tensors(getattr(srv, m)(*a)) for m, a in calls]
+    torch.cuda.synchronize()
+    batches = srv.backend.sc.batches
+    before = metrics.GLOBAL.snapshot()
+    server = FheStringServer(srv).start()
+    got = [None] * len(calls)
+
+    def client(i, method, a):
+        remote = RemoteServerKey(server.address, device="cpu", timeout=300)
+        got[i] = getattr(remote, method)(*a)
+    threads = [threading.Thread(target=client, args=(i, m, a), daemon=True)
+               for i, (m, a) in enumerate(calls)]
+    batches.enter()
+    try:
+        for t in threads:
+            t.start()
+        deadline = time.monotonic() + 300
+        while len(batches._pending) < len(calls):
+            assert time.monotonic() < deadline, "the clients did not post"
+            time.sleep(0.001)
+    finally:
+        batches.leave()
+    try:
+        for t in threads:
+            t.join(300)
+        assert not any(t.is_alive() for t in threads)
+    finally:
+        server.stop()
+    d = metrics.GLOBAL.delta(before)
+    assert d.pbs_posts > d.pbs_calls > 0
+    for (method, *_, want), a, b in zip(SERVED_TOGETHER, alone, got):
+        assert b is not None, method
+        b_tensors = _result_tensors(b)
+        assert len(a) == len(b_tensors)
+        assert all(torch.equal(x.cpu(), y) for x, y in zip(a, b_tensors)), \
+            method
+        if method == "to_upper":
+            assert ck.decrypt(b) == want
+        elif method == "strip_prefix_clear":
+            assert ck.decrypt_strip(b) == want
+        else:
+            assert ck.decrypt_char(b) == want, method

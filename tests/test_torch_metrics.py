@@ -93,3 +93,39 @@ def test_pbs_counts_identical_cold_vs_warm(monkeypatch):
     warm = run_once()
     assert cold == warm, (cold, warm)
     assert cold[0] > 0
+
+
+def test_counters_are_exact_under_threads():
+    """Threads that count at once, switching every microsecond, lose no
+    count: the copies (``torus.to_device``), the dispatches
+    (``record_pbs``) and the scans' steps (``FheBackend.scan``)."""
+    import sys
+    import threading
+
+    from fhestring_tpu_torch import torus
+    from fhestring_tpu_torch.engine.backend import FheBackend
+
+    metrics.reset()
+    threads, rounds = 8, 3000
+    t = torch.zeros(2, dtype=torch.int64)
+
+    def work():
+        for _ in range(rounds):
+            torus.to_device(t, "cpu")
+            metrics.record_pbs(2, 8)
+            FheBackend.scan(None, lambda carry, x: carry, 0, {}, 3)
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        pool = [threading.Thread(target=work) for _ in range(threads)]
+        for th in pool:
+            th.start()
+        for th in pool:
+            th.join(timeout=120)
+        assert not any(th.is_alive() for th in pool)
+    finally:
+        sys.setswitchinterval(interval)
+    g, n = metrics.GLOBAL, threads * rounds
+    assert (g.host_copies, g.pbs_calls, g.pbs_items, g.pbs_items_padded,
+            g.scan_steps) == (n, n, 2 * n, 8 * n, 3 * n)
+    metrics.reset()

@@ -442,3 +442,55 @@ def test_take_equals_np_take_and_reads_no_index_back(keys, monkeypatch,
     assert got.ct.shape == want.shape
     assert np.array_equal(got.ct.numpy(), want)
     assert (got.degree, got.noise_var) == (3, 1.0)
+
+
+def test_merged_dispatch_records_its_posts_and_the_waits(keys, identity_pbs):
+    """Two requests whose first batches wait on a third member of the set
+    (this test's thread): one ``pbs.wait`` span a post that waited, inside
+    its request's method span, with the posts of the dispatch it waited
+    for; ``pbs.dispatch`` spans whose ``posts`` add up to ``pbs_posts``;
+    and ``pbs_wait_ns`` counting the waits.  A lone request records no
+    wait and one post a dispatch."""
+    ck, srv = keys
+    batches = srv.backend.sc.batches
+    s = ck.encrypt("hello", 1)
+    metrics.record_spans(True)
+    out = {}
+
+    def call(method):
+        out[method] = getattr(srv, method)(s)
+    threads = [threading.Thread(target=call, args=(m,), daemon=True)
+               for m in ("to_upper", "len")]
+    batches.enter()
+    try:
+        for t in threads:
+            t.start()
+        deadline = time.monotonic() + TIMEOUT
+        while len(batches._pending) < 2:
+            assert time.monotonic() < deadline
+            time.sleep(0.001)
+    finally:
+        batches.leave()
+    for t in threads:
+        t.join(TIMEOUT)
+    assert not any(t.is_alive() for t in threads) and len(out) == 2
+    rec = metrics.spans()
+    g = metrics.GLOBAL
+    dispatch, waits = _by_name(rec, "pbs.dispatch"), _by_name(rec, "pbs.wait")
+    assert len(dispatch) == g.pbs_calls
+    assert sum(d.attrs["width"] for d in dispatch) == g.pbs_items
+    assert sum(d.attrs["posts"] for d in dispatch) == g.pbs_posts
+    assert g.pbs_posts > g.pbs_calls and g.pbs_wait_ns > 0
+    assert max(d.attrs["posts"] for d in dispatch) == 2
+    methods = {m.id: m for m in rec if m.name.startswith("server.")}
+    assert len(methods) == 2 and len(waits) >= 2
+    for w in waits:
+        assert w.parent in methods and w.request == methods[w.parent].request
+        assert 1 <= w.attrs["posts"] <= 2
+    assert sorted(w.attrs["posts"] for w in waits)[-2:] == [2, 2]
+    metrics.reset()
+    srv.to_upper(s)
+    rec = metrics.spans()
+    assert not _by_name(rec, "pbs.wait")
+    assert {d.attrs["posts"] for d in _by_name(rec, "pbs.dispatch")} == {1}
+    assert metrics.GLOBAL.pbs_posts == metrics.GLOBAL.pbs_calls > 0
